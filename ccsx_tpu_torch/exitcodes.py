@@ -1,0 +1,21 @@
+"""Process exit-code taxonomy (a copy of the JAX package's exitcodes.py).
+
+* ``RC_OK`` (0) — the run completed and the output is trustworthy.
+* ``RC_FATAL`` (1) — a clean operational refusal or failure: invalid input
+  stream, unwritable output path, bad flags, an unported mode.
+* ``RC_FAILED_HOLES`` (2) — a failure budget was exceeded.
+* ``RC_INTERRUPTED`` (75, EX_TEMPFAIL) — a graceful, resumable drain.
+* ``RC_INJECTED_KILL`` (57) — a fault-injection hard exit.
+
+The per-hole driver of this package returns only 0 and 1 today; the other
+codes are kept so the numbering cannot drift from the reference.
+"""
+
+RC_OK = 0
+RC_FATAL = 1
+RC_FAILED_HOLES = 2
+RC_INTERRUPTED = 75
+RC_INJECTED_KILL = 57
+
+__all__ = ["RC_OK", "RC_FATAL", "RC_FAILED_HOLES", "RC_INTERRUPTED",
+           "RC_INJECTED_KILL"]
