@@ -3,9 +3,10 @@
 Same conventions as the JAX package's CLI and the reference's getopt loop:
 positional INPUT OUTPUT with '-' for stdin/stdout, -A for FASTA/Q input,
 -P for whole-read mode, -X hole exclusion, -c >= 3 enforced.  The run goes
-through the per-hole driver on the card; ``--device cpu`` runs the plain
-PyTorch versions instead.  The batched driver is a later slice of the
-port: ``--batch auto`` means ``off`` here and ``--batch on`` is refused.
+to the card; ``--device cpu`` runs the plain PyTorch versions instead.
+``--batch auto`` (the default) selects the batched packed driver on the
+card and the per-hole driver on the CPU, as the JAX package does for an
+accelerator and for its CPU backend.
 
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
 """
@@ -42,7 +43,16 @@ output         Output file.
 
 Port options (long):
 --device {cuda,cpu}   the card (default) or the plain CPU path
---batch {auto,off}    per-hole driver (the batched driver is not ported)
+--batch {auto,on,off} batched packed driver (on) or per-hole driver (off);
+                      auto: on for cuda, off for cpu [auto]
+--inflight <int>      pin the batched driver's admission window to N holes
+                      (default: adaptive, zmw_microbatch/16 growing x4 up
+                      to zmw_microbatch, the reference's chunk policy)
+--banded-impl {scan,pallas,rotband}
+                      global-fill arm: scan and pallas (the default) run the
+                      band-local kernel on the card, rotband the
+                      rotating-band kernel; same output bytes either way.
+                      With --device cpu each arm runs its plain version
 --fastq               write FASTQ with per-base vote-margin qualities
 """
 
@@ -62,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", action="count", default=0, dest="verbose")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--batch", default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--inflight", type=int, default=None)
+    p.add_argument("--banded-impl", default="", dest="banded_impl",
+                   choices=["", "scan", "pallas", "rotband"])
     p.add_argument("--fastq", action="store_true", dest="fastq")
     return p
 
@@ -85,6 +98,7 @@ def config_from_args(args) -> CcsConfig:
         verbose=args.verbose,
         emit_quality=args.fastq,
         device=args.device,
+        banded_impl=args.banded_impl,
     )
 
 
@@ -95,18 +109,14 @@ def main(argv: Optional[list] = None) -> int:
     if args.help:
         print(USAGE, end="")
         return exitcodes.RC_FATAL  # like the reference's usage()
-    if args.batch == "on":
-        print("Error: --batch on: the batched driver is not ported yet (a "
-              "later slice of the port); use --batch off or auto",
-              file=sys.stderr)
-        return exitcodes.RC_FATAL
     try:
         cfg = config_from_args(args)
     except SystemExit as e:
         return int(e.code or 0)
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
-    return run_pipeline(args.input, args.output, cfg)
+    return run_pipeline(args.input, args.output, cfg, batch=args.batch,
+                        inflight=args.inflight)
 
 
 if __name__ == "__main__":

@@ -189,10 +189,10 @@ class CcsConfig:
     device: str = "cuda"               # {cuda, cpu}: the card unless the
     #   caller asks for the CPU (utils/device.resolve_device)
     banded_impl: str = ""              # CLI --banded-impl: banded DP-fill
-    #   implementation {scan, pallas, rotband}; "" = scan (the spec).
-    #   All three are bit-identical (consensus/star.banded_impl docstring
-    #   has the promotion protocol) — a pure performance A/B knob, so it
-    #   rides fingerprint._NON_SEMANTIC
+    #   arm {scan, pallas, rotband}; on the card "", scan and pallas
+    #   launch the band-local kernel and rotband the rotating-band one
+    #   (consensus/star.global_fill); on the CPU each arm runs its plain
+    #   version.  All are bit-identical — a pure performance A/B knob
     mesh_shape: Optional[tuple] = None  # (data, pass) for the batched
     #   pipeline's device mesh, e.g. (4, 2); (D,) means (D, 1); None =
     #   all local devices on the data axis (CLI: --mesh D,P)

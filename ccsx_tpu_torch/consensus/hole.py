@@ -31,7 +31,7 @@ def _consensus_gen_for_passes(passes, zmw, cfg: CcsConfig):
         gen = windowed_gen(passes, cfg)
     else:
         sm = StarMsa(cfg.align, cfg.max_ins_per_col, cfg.len_bucket_quant,
-                 cfg.device)
+                 cfg.device, cfg.banded_impl)
         gen = sm.consensus_gen(
             passes, cfg.refine_iters, cfg.pass_buckets, cfg.max_passes,
             quality=((cfg.qv_coeffs, cfg.qv_cap)
@@ -98,5 +98,5 @@ def ccs_hole(zmw, aligner, cfg: CcsConfig,
     if stats is not None:
         gen = _counted(gen, stats)
     sm = StarMsa(cfg.align, cfg.max_ins_per_col, cfg.len_bucket_quant,
-                 cfg.device)
+                 cfg.device, cfg.banded_impl)
     return enc.to_record(run_rounds(gen, sm))

@@ -21,10 +21,7 @@ import numpy as np
 
 from ccsx_tpu_torch.config import CcsConfig
 from ccsx_tpu_torch.ops import encode as enc
-
-# the JAX package's ops/sketch.SPECULATE_MIN_QT, kept here as a copy: the
-# pre-alignment screen is not ported yet, so nothing else of sketch is
-SPECULATE_MIN_QT = 16384
+from ccsx_tpu_torch.ops.sketch import SPECULATE_MIN_QT
 
 
 @dataclasses.dataclass

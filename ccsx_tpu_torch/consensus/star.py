@@ -15,7 +15,31 @@ import numpy as np
 import torch
 
 from ccsx_tpu_torch.config import AlignParams
-from ccsx_tpu_torch.ops import banded, banded_cuda, msa, traceback
+from ccsx_tpu_torch.ops import (banded, banded_cuda, banded_rotband, msa,
+                                 traceback)
+
+BANDED_IMPLS = ("", "scan", "pallas", "rotband")
+
+
+def global_fill(params: AlignParams, impl: str = ""):
+    """The global fill with move bytes of one arm (``CcsConfig.banded_impl``,
+    CLI --banded-impl), as f(qs, qlens, ts, tlens) -> (score, moves, offs).
+
+    On CUDA tensors '' (the default), 'scan' and 'pallas' launch the
+    band-local kernel (ops/banded_cuda.py) and 'rotband' the rotating-band
+    kernel (ops/banded_rotband.py); on CPU tensors each arm's wrapper runs
+    its plain version.  Every arm gives the same values, so the choice only
+    moves time.  The JAX package's names are kept: there 'scan' is the
+    lax.scan spec and 'pallas' the band-local TPU kernel."""
+    if impl not in BANDED_IMPLS:
+        raise ValueError(f"banded_impl {impl!r}: expected one of "
+                         f"{BANDED_IMPLS[1:]}")
+    mod = banded_rotband if impl == "rotband" else banded_cuda
+
+    def fill(qs, qlens, ts, tlens):
+        return mod.batched_align_global_moves(qs, qlens, ts, tlens, params)
+
+    return fill
 
 
 def pass_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -197,11 +221,12 @@ def apply_hp_penalty(codes: np.ndarray, quals: np.ndarray,
 
 class StarMsa:
     def __init__(self, params: AlignParams, max_ins: int = 4,
-                 len_quant: int = 512, device="cuda"):
+                 len_quant: int = 512, device="cuda", impl: str = ""):
         self.params = params
         self.max_ins = max_ins
         self.len_quant = len_quant
         self.device = torch.device(device)
+        self.fill = global_fill(params, impl)
 
     def round(self, qs: np.ndarray, qlens: np.ndarray, row_mask: np.ndarray,
               draft: np.ndarray) -> RoundResult:
@@ -219,8 +244,7 @@ class StarMsa:
         t_t = torch.from_numpy(pad_to(draft, tmax)).to(dev)[None].expand(P, tmax)
         tl_t = torch.full((P,), tlen, dtype=torch.int32, device=dev)
         mask_t = torch.from_numpy(np.asarray(row_mask, bool)).to(dev)
-        _, moves, offs = banded_cuda.batched_align_global_moves(
-            q_t, ql_t, t_t, tl_t, self.params)
+        _, moves, offs = self.fill(q_t, ql_t, t_t, tl_t)
         aligned, ins_cnt, ins_b, lead_ins = traceback.project(
             moves, offs, q_t, ql_t, tl_t, tmax, R)
         cons, ins_base, ins_votes, ncov, match, nwin = msa.vote(

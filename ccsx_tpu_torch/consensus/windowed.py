@@ -89,7 +89,7 @@ def windowed_gen(passes: List[np.ndarray], cfg: CcsConfig):
     (or (codes, phred_quals) with cfg.emit_quality) via
     StopIteration.value."""
     sm = StarMsa(cfg.align, cfg.max_ins_per_col, cfg.len_bucket_quant,
-                 cfg.device)
+                 cfg.device, cfg.banded_impl)
     if len(passes) > cfg.max_passes:
         passes = passes[: cfg.max_passes]
     nseq = len(passes)
@@ -190,7 +190,7 @@ def consensus_windowed(passes: List[np.ndarray], cfg: CcsConfig):
     Returns consensus codes as an np.ndarray, or a (codes, quals)
     tuple when cfg.emit_quality is set (matching windowed_gen)."""
     sm = StarMsa(cfg.align, cfg.max_ins_per_col, cfg.len_bucket_quant,
-                 cfg.device)
+                 cfg.device, cfg.banded_impl)
     return run_rounds(windowed_gen(passes, cfg), sm)
 
 

@@ -45,23 +45,25 @@ def _lib():
     return lib
 
 
-def _validate(what, qs, qlens, ts, tlens, band, maxshift):
+def validate(what, qs, qlens, ts, tlens, band, maxshift):
+    """Refuse (cuda_ext.RefusedInputs) what the fill kernels cannot take."""
+    refuse = cuda_ext.RefusedInputs
     if (band or BAND) != BAND or maxshift != MAXSHIFT:
-        raise ValueError(f"{what}: the kernel holds band={BAND}, "
-                         f"maxshift={MAXSHIFT}")
+        raise refuse(f"{what}: the kernel holds band={BAND}, "
+                     f"maxshift={MAXSHIFT}")
     if qs.dtype != torch.uint8 or ts.dtype != torch.uint8:
-        raise ValueError(f"{what}: qs and ts must be uint8")
+        raise refuse(f"{what}: qs and ts must be uint8")
     if qlens.dtype != torch.int32 or tlens.dtype != torch.int32:
-        raise ValueError(f"{what}: qlens and tlens must be int32")
+        raise refuse(f"{what}: qlens and tlens must be int32")
     cuda_ext.require_cuda(what, qs, qlens, ts, tlens)
     n = qs.shape[0]
     if (qs.dim() != 2 or ts.dim() != 2 or ts.shape[0] != n
             or qlens.shape != (n,) or tlens.shape != (n,)):
-        raise ValueError(f"{what}: expected qs (n, qmax), ts (n, tmax), "
-                         "qlens (n,), tlens (n,)")
+        raise refuse(f"{what}: expected qs (n, qmax), ts (n, tmax), "
+                     "qlens (n,), tlens (n,)")
     if not qs.is_contiguous() or not qlens.is_contiguous() \
             or not tlens.is_contiguous():
-        raise ValueError(f"{what}: qs, qlens, tlens must be contiguous")
+        raise refuse(f"{what}: qs, qlens, tlens must be contiguous")
 
 
 def batched_align_global_moves(qs: torch.Tensor, qlens: torch.Tensor,
@@ -76,7 +78,7 @@ def batched_align_global_moves(qs: torch.Tensor, qlens: torch.Tensor,
             qs, qlens, ts, tlens, params, band, maxshift)
         return res.score, moves, offs
     what = "banded global fill"
-    _validate(what, qs, qlens, ts, tlens, band, maxshift)
+    validate(what, qs, qlens, ts, tlens, band, maxshift)
     n, qmax = qs.shape
     dev = qs.device
     moves = torch.empty((n, qmax, BAND), dtype=torch.uint8, device=dev)
@@ -107,14 +109,15 @@ def batched_align_local(qs: torch.Tensor, qlens: torch.Tensor,
         return banded.banded_local(qs, qlens, ts, tlens, lines, params,
                                    band, maxshift)
     what = "banded local fill"
-    _validate(what, qs, qlens, ts, tlens, band, maxshift)
+    validate(what, qs, qlens, ts, tlens, band, maxshift)
     if not ts.is_contiguous():
-        raise ValueError(f"{what}: ts must be contiguous")
+        raise cuda_ext.RefusedInputs(f"{what}: ts must be contiguous")
     if lines is None:
         lines = banded.corner_lines(qlens, tlens)
     if (lines.dtype != torch.int32 or lines.shape != (qs.shape[0], 4)
             or not lines.is_contiguous()):
-        raise ValueError(f"{what}: lines must be contiguous (n, 4) int32")
+        raise cuda_ext.RefusedInputs(
+            f"{what}: lines must be contiguous (n, 4) int32")
     cuda_ext.require_cuda(what, qs, lines)
     n, qmax = qs.shape
     out = torch.empty((7, n), dtype=torch.int32, device=qs.device)

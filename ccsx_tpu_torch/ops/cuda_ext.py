@@ -12,8 +12,10 @@ on anything but success.
 it launches its kernel and nowhere else, so a run can show which kernels
 its path went through.
 
-A kernel that fails to build or launch raises ``KernelError``: the caller
-cannot go on without the card, so no hole quarantine may swallow it.
+A kernel that fails to build or launch raises ``KernelError``, and a wrapper
+that refuses its tensors on the card raises its subclass ``RefusedInputs``:
+the caller cannot go on without the kernel, so no hole quarantine or
+per-request replay may swallow either.
 """
 
 from __future__ import annotations
@@ -29,17 +31,24 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "ccsx_tpu_torch_ext")
-SOURCES = ("banded_fill", "traceback_walk")
+SOURCES = ("banded_fill", "banded_rotband", "traceback_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"banded_global": 0, "banded_local": 0, "traceback_walk": 0}
+LAUNCHES = {"banded_global": 0, "banded_local": 0, "banded_rotband": 0,
+            "traceback_walk": 0}
 
 _lock = threading.Lock()
 
 
 class KernelError(RuntimeError):
     """A kernel did not build, load or launch."""
+
+
+class RefusedInputs(KernelError):
+    """A wrapper refused the tensors it was given for its kernel: a fault of
+    the calling code, which every later call of that shape repeats, so it
+    ends the run as a failed launch does."""
 
 
 _libs: dict = {}
@@ -125,6 +134,22 @@ def timed_build(ptxas_verbose: bool = False):
     return time.perf_counter() - t0, logs
 
 
+def is_device_fault(e: BaseException) -> bool:
+    """A failure of the card or a kernel (sticky for every later hole), as
+    opposed to one hole's bad data.  A CUDA out-of-memory error is neither:
+    the batched driver recovers from it by splitting the slab."""
+    import torch
+
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return False
+    if isinstance(e, KernelError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
+    return isinstance(e, RuntimeError) and "CUDA" in str(e)
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launcher reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""
@@ -140,10 +165,13 @@ def stream_ptr(device) -> int:
 
 
 def require_cuda(what: str, *tensors) -> None:
-    """Every tensor on one CUDA device, contiguous in its last dimension."""
+    """Every tensor on one CUDA device, contiguous in its last dimension (a
+    last dimension of size 1 has no stride to speak of: a kernel only ever
+    reads its element 0)."""
     dev = tensors[0].device
     for x in tensors:
         if x.device != dev or x.device.type != "cuda":
-            raise ValueError(f"{what}: all inputs must be on one CUDA device")
-        if x.dim() and x.stride(-1) != 1:
-            raise ValueError(f"{what}: inputs must be contiguous rows")
+            raise RefusedInputs(f"{what}: all inputs must be on one CUDA "
+                                "device")
+        if x.dim() and x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise RefusedInputs(f"{what}: inputs must be contiguous rows")

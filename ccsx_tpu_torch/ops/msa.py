@@ -1,8 +1,11 @@
 """Star-MSA column voting: consensus call over stacked projections.
 
 The vote is a reduction over the pass axis in plain tensor ops, on whatever
-device the projections live.  ``emit_insertions`` and ``materialize`` stay
-on the host in NumPy: their output length depends on the data.
+device the projections live; the packed slabs of the batched driver vote by
+segment id (``make_segment_voter``).  ``emit_insertions`` and
+``materialize`` are the host (NumPy) spec; ``emit_insertions_t`` and
+``make_materializer`` are their tensor twins, which keep the batched
+refine loop's drafts on the device.
 """
 
 from __future__ import annotations
@@ -45,6 +48,96 @@ def vote(aligned: torch.Tensor, ins_cnt: torch.Tensor, ins_b: torch.Tensor,
     ins_votes = torch.stack(votes, dim=1)
     match = (aligned == cons[None, :]) & mask
     return cons, ins_base, ins_votes, ncov, match, nwin
+
+
+def make_segment_voter(max_ins: int, num_segments: int):
+    """Segment-id column vote for the packed slabs (pipeline/pack.py): rows
+    of many holes share one (R, T) slab and ``seg`` maps each row to its
+    hole slot in [0, num_segments).
+
+    Shapes: aligned (R, T) uint8, ins_cnt (R, T) int32, ins_b (R, T,
+    max_ins) uint8, row_mask (R,) bool, seg (R,) int64.  Returns the
+    tuple of ``vote`` with the hole axis H = num_segments in front of the
+    per-hole outputs and match per row: cons (H, T), ins_base (H, T,
+    max_ins), ins_votes (H, T, max_ins), ncov (H, T), match (R, T), nwin
+    (H, T).  Every count is a masked int32 ``index_add_``, exact in any
+    order; ties go to the first maximum; an empty hole slot has ncov 0
+    and so cons GAP.
+    """
+    H = num_segments
+
+    def vote(aligned, ins_cnt, ins_b, row_mask, seg):
+        mask = row_mask[:, None]
+
+        def ssum(x):
+            out = torch.zeros((H,) + tuple(x.shape[1:]), dtype=torch.int32,
+                              device=x.device)
+            return out.index_add_(0, seg, x.to(torch.int32))
+
+        cnts = torch.stack([ssum((aligned == c) & mask) for c in range(5)])
+        ncov = cnts.sum(0, dtype=torch.int32)
+        nwin = cnts.max(0).values
+        cons = torch.argmax(cnts, dim=0).to(torch.uint8)
+        cons = torch.where(ncov == 0, GAP, cons).to(torch.uint8)
+
+        bases, votes = [], []
+        for r in range(max_ins):
+            has = mask & (ins_cnt > r)
+            votes.append(ssum(has))
+            bc = torch.stack([ssum((ins_b[:, :, r] == c) & has)
+                              for c in range(4)])
+            bases.append(torch.argmax(bc, dim=0).to(torch.uint8))
+        ins_base = torch.stack(bases, dim=2)
+        ins_votes = torch.stack(votes, dim=2)
+        match = (aligned == cons.index_select(0, seg)) & mask
+        return cons, ins_base, ins_votes, ncov, match, nwin
+
+    return vote
+
+
+def emit_insertions_t(ins_base: torch.Tensor, ins_votes: torch.Tensor,
+                      ncov: torch.Tensor, speculative: bool) -> torch.Tensor:
+    """``emit_insertions`` as tensor ops over any leading axes: the same
+    integer rules and the same prefix rule (rank r emits only if rank r-1
+    did).  Keeps the refine loop's speculative drafts on the device."""
+    iv = ins_votes.to(torch.int32)
+    n = ncov.to(torch.int32)[..., None]
+    emit = iv * 2 > n
+    if speculative:
+        third = -torch.div(-n, 3, rounding_mode="floor")
+        emit = emit | (iv >= torch.clamp(third, min=2))
+    for r in range(1, emit.shape[-1]):
+        emit[..., r] &= emit[..., r - 1]
+    return torch.where(emit, ins_base, PAD).to(torch.uint8)
+
+
+def make_materializer(tmax_in: int, tmax_out: int, max_ins: int):
+    """Materialize on the device at static shapes, for a batch of holes.
+
+    Returns f(cons (H, tmax_in) uint8, ins_out (H, tmax_in, max_ins) uint8,
+    tlen (H,) int32) -> (draft (H, tmax_out) uint8 padded with PAD, newlen
+    (H,) int32, overflow (H,) bool).  Equal to the host ``materialize`` on
+    the first ``newlen`` cells whenever ``overflow`` is False; on overflow
+    the tail is dropped (writes past tmax_out go to a spare slot that is
+    cut off) and the caller replays the hole exactly on the host.
+    """
+
+    def mat(cons, ins_out, tlen):
+        H = cons.shape[0]
+        dev = cons.device
+        m = torch.cat([cons[:, :, None], ins_out], dim=2).reshape(H, -1)
+        col = torch.arange(tmax_in, dtype=torch.int32,
+                           device=dev).repeat_interleave(1 + max_ins)
+        keep = (m < 4) & (col[None, :] < tlen.to(torch.int32)[:, None])
+        pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+        newlen = keep.sum(1, dtype=torch.int32)
+        idx = torch.where(keep & (pos < tmax_out), pos, tmax_out).long()
+        out = torch.full((H, tmax_out + 1), PAD, dtype=torch.uint8,
+                         device=dev)
+        out.scatter_(1, idx, m.to(torch.uint8))
+        return out[:, :tmax_out].contiguous(), newlen, newlen > tmax_out
+
+    return mat
 
 
 def emit_insertions(ins_base: np.ndarray, ins_votes: np.ndarray,

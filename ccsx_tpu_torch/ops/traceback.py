@@ -126,16 +126,18 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
     if (moves.dtype != torch.uint8 or qs.dtype != torch.uint8
             or offs.dtype != torch.int32 or qlens.dtype != torch.int32
             or tlens.dtype != torch.int32):
-        raise ValueError(f"{what}: expected uint8 moves/qs and int32 "
-                         "offs/qlens/tlens")
+        raise cuda_ext.RefusedInputs(
+            f"{what}: expected uint8 moves/qs and int32 offs/qlens/tlens")
     if (B != 128 or qmax < 1 or offs.shape != (P, qmax) or qs.shape != (P, qmax)
             or qlens.shape != (P,) or tlens.shape != (P,)):
-        raise ValueError(f"{what}: expected moves (P, qmax, 128), offs and "
-                         "qs (P, qmax), qlens and tlens (P,)")
+        raise cuda_ext.RefusedInputs(
+            f"{what}: expected moves (P, qmax, 128), offs and qs (P, qmax), "
+            "qlens and tlens (P,)")
     if not all(x.is_contiguous() for x in (moves, offs, qs, qlens, tlens)):
-        raise ValueError(f"{what}: inputs must be contiguous")
+        raise cuda_ext.RefusedInputs(f"{what}: inputs must be contiguous")
     if not 1 <= max_ins <= 16:
-        raise ValueError(f"{what}: max_ins must be in [1, 16]")
+        raise cuda_ext.RefusedInputs(
+            f"{what}: max_ins must be in [1, 16]")
     dev = moves.device
     aligned = torch.empty((P, tmax), dtype=torch.uint8, device=dev)
     ins_cnt = torch.empty((P, tmax), dtype=torch.int32, device=dev)

@@ -1,12 +1,14 @@
-"""The per-hole driver: input stream -> consensus -> ordered FASTA output.
+"""One run: input stream -> consensus -> ordered FASTA output.
 
-A bounded thread pool (-j) computes holes concurrently while the writer
-drains futures strictly in submission order, so the output is
-``>movie/hole/ccs`` in input order for any thread count.  A hole whose
-consensus raises is quarantined: it is reported and skipped, and the run
-goes on.  A fault of the card or of a kernel is not a bad hole: it ends
-the run with RC_FATAL (on the card, the kernels are built before the
-first hole for the same reason).
+``run_pipeline`` opens the input and the output and hands them to one of
+two drivers: the batched packed driver (pipeline/batch.py, the default on
+the card) or the per-hole driver below, where a bounded thread pool (-j)
+computes holes concurrently while the writer drains futures strictly in
+submission order.  Either way the output is ``>movie/hole/ccs`` in input
+order.  A hole whose consensus raises is quarantined: it is reported and
+skipped, and the run goes on.  A fault of the card or of a kernel is not a
+bad hole: it ends the run with RC_FATAL (on the card, the kernels are built
+before the first hole for the same reason).
 """
 
 from __future__ import annotations
@@ -14,8 +16,6 @@ from __future__ import annotations
 import collections
 import sys
 from concurrent.futures import ThreadPoolExecutor
-
-import torch
 
 from ccsx_tpu_torch import exitcodes
 from ccsx_tpu_torch.config import CcsConfig
@@ -61,49 +61,20 @@ class _Writer:
             self._f.flush()
 
 
-def _device_fault(e: BaseException) -> bool:
-    """A failure of the card or a kernel (sticky for every later hole),
-    as opposed to one hole's bad data."""
-    if isinstance(e, cuda_ext.KernelError):
-        return True
-    accel = getattr(torch, "AcceleratorError", None)
-    if accel is not None and isinstance(e, accel):
-        return True
-    return isinstance(e, RuntimeError) and "CUDA" in str(e)
-
-
-def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig) -> int:
-    try:
-        device = resolve_device(cfg.device)
-    except RuntimeError as e:
-        print(f"Error: {e}", file=sys.stderr)
-        return exitcodes.RC_FATAL
-    if device.type == "cuda":
-        try:
-            cuda_ext.load_all()
-        except (cuda_ext.KernelError, OSError) as e:
-            print(f"Error: the CUDA kernels cannot be loaded: {e}",
-                  file=sys.stderr)
-            return exitcodes.RC_FATAL
-    try:
-        stream = open_zmw_stream(in_path, cfg)
-    except OSError as e:
-        print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
-        return exitcodes.RC_FATAL
-    try:
-        writer = _Writer(out_path)
-    except OSError as e:
-        print(f"Cannot open file for write! ({e})", file=sys.stderr)
-        return exitcodes.RC_FATAL
+def drive_per_hole(stream, writer, cfg: CcsConfig, device,
+                   counts: dict) -> None:
+    """The per-hole driver over an open ZMW stream and writer (--batch
+    off): a bounded pool of -j threads, results drained in input order.  A
+    hole's own error is quarantined; a kernel or card fault raises
+    cuda_ext.KernelError."""
     aligner = HostAligner(cfg.align, device=device)
-    counts = {"in": 0, "out": 0, "failed": 0, "windows": 0}
 
     def compute(z):
         stats: dict = {}
         try:
             return z, ccs_hole(z, aligner, cfg, stats), None, stats
         except Exception as e:  # quarantine: one bad hole must not kill the run
-            if device.type == "cuda" and _device_fault(e):
+            if device.type == "cuda" and cuda_ext.is_device_fault(e):
                 if isinstance(e, cuda_ext.KernelError):
                     raise
                 raise cuda_ext.KernelError(str(e)) from e
@@ -120,7 +91,6 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig) -> int:
             writer.put(f"{z.movie}/{z.hole}/ccs", rec[0], rec[1])
             counts["out"] += 1
 
-    rc = exitcodes.RC_OK
     pool = ThreadPoolExecutor(max_workers=cfg.threads) \
         if cfg.threads > 1 else None
     pending = collections.deque()
@@ -136,25 +106,79 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig) -> int:
                 write_result(pending.popleft().result())
         while pending:
             write_result(pending.popleft().result())
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
+                 batch: str = "auto", inflight: int | None = None) -> int:
+    """One run end to end.  ``batch``: 'on' runs the batched packed driver
+    (pipeline/batch.py), 'off' the per-hole driver, 'auto' the batched one
+    on the card and the per-hole one on the CPU.  ``inflight`` pins the
+    batched driver's admission window."""
+    try:
+        device = resolve_device(cfg.device)
+    except RuntimeError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return exitcodes.RC_FATAL
+    batched = batch == "on" or (batch == "auto" and device.type == "cuda")
+    if device.type == "cuda":
+        # both drivers: a kernel that cannot build ends the run before
+        # the first hole
+        try:
+            cuda_ext.load_all()
+        except (cuda_ext.KernelError, OSError) as e:
+            print(f"Error: the CUDA kernels cannot be loaded: {e}",
+                  file=sys.stderr)
+            return exitcodes.RC_FATAL
+    try:
+        stream = open_zmw_stream(in_path, cfg)
+    except OSError as e:
+        print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
+        return exitcodes.RC_FATAL
+    try:
+        writer = _Writer(out_path)
+    except OSError as e:
+        print(f"Cannot open file for write! ({e})", file=sys.stderr)
+        return exitcodes.RC_FATAL
+    counts = {"in": 0, "out": 0, "failed": 0, "windows": 0}
+    rc = exitcodes.RC_OK
+    try:
+        if batched:
+            from ccsx_tpu_torch.pipeline import batch as batch_mod
+
+            batch_mod.drive_batched(stream, writer, cfg, device, counts,
+                                    inflight)
+        else:
+            drive_per_hole(stream, writer, cfg, device, counts)
+    except cuda_ext.KernelError as e:
+        print(f"Error: device failure, run aborted: {e}", file=sys.stderr)
+        rc = exitcodes.RC_FATAL
     except (bam_mod.BamError, zmw.InvalidZmwName, ValueError) as e:
         print(f"Error: invalid input stream: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
     except OSError as e:
         print(f"Error: write failed: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
-    except cuda_ext.KernelError as e:
-        print(f"Error: device failure, run aborted: {e}", file=sys.stderr)
-        rc = exitcodes.RC_FATAL
     finally:
-        if pool is not None:
-            pool.shutdown(wait=True, cancel_futures=True)
         try:
             writer.close()
         except OSError as e:
             print(f"Error: write failed! ({e})", file=sys.stderr)
             rc = exitcodes.RC_FATAL
+    if counts.get("failed_steps") and not cfg.verbose:
+        # a batched step that failed over is a fault to see, verbose or not
+        print(f"[ccsx-tpu-torch] failed_steps={counts['failed_steps']} "
+              f"host_replays={counts['host_replays']}: batched device steps "
+              "failed and their requests ran on the per-hole round",
+              file=sys.stderr)
     if cfg.verbose:
+        extra = " ".join(f"{k}={v}" for k, v in counts.items()
+                         if k not in ("in", "out", "failed", "windows"))
         print(f"[ccsx-tpu-torch] holes in={counts['in']} out={counts['out']} "
               f"failed={counts['failed']} windows={counts['windows']} "
-              f"device={device}", file=sys.stderr)
+              f"driver={'batched' if batched else 'per-hole'} "
+              f"device={device}" + (f" {extra}" if extra else ""),
+              file=sys.stderr)
     return rc

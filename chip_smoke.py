@@ -11,16 +11,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the widths the main path gives it (global fill: 32 passes, qmax 2048,
    tmax 2560, plus an edge batch with a >4096-row final-flush window; local
    fill: 5 kb and 15 kb pairs with and without a seeded line; traceback
-   walk: on the global fill's output) — exact equality, all are integers;
+   walk: on the global fill's output; rotating-band fill: a packed slab of
+   128 rows over 4 holes' templates, qmax 2048, tmax 2560, also against
+   the band-local kernel on the same inputs, plus the edge batch) — exact
+   equality, all are integers;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
-   through the port's CLI on the card; its output must have the JAX
-   package's pinned md5, and every kernel must have launched during it
-   (launch counts are reset just before and read just after this run);
-   then the same run once more under torch.profiler, for the device busy
-   time by kernel;
+   through the port's CLI on the card in three arms — the default (the
+   batched packed driver), ``--banded-impl rotband`` and ``--batch off`` —
+   twice each, alternating.  Each output must have the JAX package's pinned
+   md5, no device step may fail over to its per-request replay, and the
+   launch counts (reset just before and read just after each run) must show
+   the default run going through the band-local fill, the local fill and
+   the walk, and the rotband run through the rotating-band fill.  A cold
+   default run comes first (the CUDA modules of the torch ops load on first
+   launch) and is reported apart.  Then the default run once more under
+   torch.profiler, for the device busy time by kernel;
 5. 8 HiFi-size holes (15 kb templates, at least 10 passes) through the CLI
-   on the card; each consensus must reach identity >= 0.99 against its
-   template.
+   on the card (the batched driver); each consensus must reach identity
+   >= 0.99 against its template.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -54,7 +62,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations of each kernel, tallied from its body in the source
 # note of csrc/banded_fill.cu and csrc/traceback_walk.cu: per query row
 # (band offset and loop) plus per band lane of each row, and per walk step
-# plus per move kind
+# plus per move kind.  The rotating-band fill computes the same function as
+# the band-local one, so both are bound by the smaller tally, the band-local
+# kernel's (csrc/banded_rotband.cu notes its own larger count, 31 + 122)
 OPS_PER_ROW_GLOBAL, OPS_PER_CELL_GLOBAL = 29, 85
 OPS_PER_ROW_LOCAL, OPS_PER_CELL_LOCAL = 25, 125
 OPS_PER_STEP_WALK = 27
@@ -65,6 +75,8 @@ SOURCES = {
                       "ccsx_tpu/ops/banded_pallas.py:494"),
     "banded_local": ("ccsx_tpu_torch/csrc/banded_fill.cu",
                      "ccsx_tpu/ops/banded.py:133 (lax original, mode='local')"),
+    "banded_rotband": ("ccsx_tpu_torch/csrc/banded_rotband.cu",
+                       "ccsx_tpu/ops/banded_rotband.py:412"),
     "traceback_walk": ("ccsx_tpu_torch/csrc/traceback_walk.cu",
                        "ccsx_tpu/ops/traceback.py:173 (lax original)"),
 }
@@ -137,6 +149,26 @@ def edge_inputs(rng, synth):
     return qs, qlens, ts, tlens
 
 
+def slab_inputs(rng, R, qmax, tmax, holes, synth):
+    """A packed slab's rows: R rows over ``holes`` templates, each row
+    carrying its own hole's template (the packed round's per-row gather),
+    the last row a padding row."""
+    tpls = [rng.integers(0, 4, int(rng.integers(tmax - 500, tmax - 300))
+                         ).astype(np.uint8) for _ in range(holes)]
+    qs = np.full((R, qmax), 5, np.uint8)
+    ts = np.full((R, tmax), 5, np.uint8)
+    qlens = np.zeros(R, np.int32)
+    tlens = np.zeros(R, np.int32)
+    for r in range(R - 1):
+        t = tpls[r % holes]
+        q = synth.mutate(rng, t, 0.02, 0.05, 0.05)[:qmax]
+        qs[r, :len(q)] = q
+        qlens[r] = len(q)
+        ts[r, :len(t)] = t
+        tlens[r] = len(t)
+    return qs, qlens, ts, tlens
+
+
 def local_inputs(rng, synth, enc, seed):
     """5 kb and 15 kb strand-walk pairs: a forward pass, a wrong-strand
     pass, and an off-diagonal read-through-like query; each once with the
@@ -170,12 +202,13 @@ def phase_kernels(device, sizes=None):
     the per-kernel records (without launches)."""
     import torch
 
-    from ccsx_tpu_torch.ops import banded, banded_cuda, encode as enc
+    from ccsx_tpu_torch.ops import banded, banded_cuda, banded_rotband
+    from ccsx_tpu_torch.ops import encode as enc
     from ccsx_tpu_torch.ops import seed, traceback
     from ccsx_tpu_torch.utils import synth
 
     sizes = sizes or dict(P=32, qmax=2048, tmax=2560, tlen=2200, reps=20,
-                          plain_reps=3, edges=True, local=True)
+                          plain_reps=3, edges=True, local=True, R=128)
     rng = np.random.default_rng(1234)
     dev = torch.device(device)
     records = {}
@@ -198,26 +231,30 @@ def phase_kernels(device, sizes=None):
         return banded_cuda.batched_align_global_moves(q_t, ql_t, t_t, tl_t)
 
     def run_plain():
-        return banded.banded_global_moves(q_t, ql_t, t_t, tl_t)
+        return plain_global(q_t, ql_t, t_t, tl_t)
 
     def compare_global(k_out, p_out, qlens_np):
-        (ks, km, ko), (pr, pm, po) = k_out, p_out
-        err = max(max_err(ks, pr.score), max_err(ko, po))
+        (ks, km, ko), (ps, pm, po) = k_out, p_out
+        err = max(max_err(ks, ps), max_err(ko, po))
         for i, ql in enumerate(qlens_np):
             err = max(err, max_err(km[i, :ql], pm[i, :ql]))
         return err
 
+    def plain_global(*a):
+        res, m, o = banded.banded_global_moves(*a)
+        return res.score, m, o
+
     k_out = run_kernel()
     t0 = time.perf_counter()
-    p_out = run_plain()
+    p_out = plain_global(q_t, ql_t, t_t, tl_t)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     err = compare_global(k_out, p_out, qlens)
-    if sizes["edges"]:
-        e = [T(x) for x in edge_inputs(rng, synth)]
+    edges = [T(x) for x in edge_inputs(rng, synth)] if sizes["edges"] else None
+    if edges:
         err = max(err, compare_global(
-            banded_cuda.batched_align_global_moves(*e),
-            banded.banded_global_moves(*e), e[1].cpu().numpy()))
+            banded_cuda.batched_align_global_moves(*edges),
+            plain_global(*edges), edges[1].cpu().numpy()))
     if err:
         raise AssertionError(f"global fill differs from its plain version "
                              f"(max abs err {err})")
@@ -233,6 +270,54 @@ def phase_kernels(device, sizes=None):
         shape=f"P={P} qmax={sizes['qmax']} tmax={sizes['tmax']} band=128")
     print(f"[chip_smoke] global fill: 0 mismatches vs plain "
           f"({time.perf_counter() - t0:.1f}s incl. plain)", flush=True)
+
+    # ---- rotating-band fill, at the packed slab's width ----
+    R = sizes["R"]
+    sq, sql, sts, stl = (T(x) for x in slab_inputs(
+        rng, R, sizes["qmax"], sizes["tmax"], 4, synth))
+
+    def run_rot():
+        return banded_rotband.batched_align_global_moves(sq, sql, sts, stl)
+
+    def run_rot_plain():
+        return banded_rotband.rotband_global_moves(sq, sql, sts, stl)
+
+    def run_local_layout():
+        return banded_cuda.batched_align_global_moves(sq, sql, sts, stl)
+
+    t0 = time.perf_counter()
+    r_out = run_rot()
+    sql_np = sql.cpu().numpy()
+    err = max(compare_global(r_out, run_rot_plain(), sql_np),
+              compare_global(r_out, run_local_layout(), sql_np))
+    if edges:
+        e_out = banded_rotband.batched_align_global_moves(*edges)
+        e_np = edges[1].cpu().numpy()
+        err = max(err, compare_global(
+            e_out, banded_rotband.rotband_global_moves(*edges), e_np),
+            compare_global(e_out, banded_cuda.batched_align_global_moves(
+                *edges), e_np))
+    if err:
+        raise AssertionError(f"rotating-band fill differs from its plain "
+                             f"version or the band-local kernel (max abs err "
+                             f"{err})")
+    rows = int(sql.sum())
+    nbytes = (sq.numel() + sts.numel() + 8 * R
+              + R * sizes["qmax"] * (128 + 4) + 4 * R)
+    b_ms, b_by = bound_ms(nbytes, rows * (OPS_PER_ROW_GLOBAL
+                                          + 128 * OPS_PER_CELL_GLOBAL))
+    records["banded_rotband"] = dict(
+        max_abs_err=err, mismatches=0, ms=time_ms(run_rot, sizes["reps"]),
+        band_local_ms_same_inputs=time_ms(run_local_layout, sizes["reps"]),
+        plain_ms=time_ms(run_rot_plain, sizes["plain_reps"], warmup=0),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"R={R} rows of 4 holes, qmax={sizes['qmax']} "
+              f"tmax={sizes['tmax']} band=128")
+    print(f"[chip_smoke] rotating-band fill: 0 mismatches vs plain and vs "
+          f"the band-local kernel ({time.perf_counter() - t0:.1f}s incl. "
+          f"plain); {records['banded_rotband']['ms']:.4f} ms vs band-local "
+          f"{records['banded_rotband']['band_local_ms_same_inputs']:.4f} ms "
+          f"at R={R}", flush=True)
 
     # ---- traceback walk on the global fill's output ----
     _, moves, offs = k_out
@@ -305,27 +390,39 @@ def phase_kernels(device, sizes=None):
     return records
 
 
-def phase_scale64(device, n_holes=64):
-    """The 64-hole scale corpus through the CLI; returns (seconds, counts)."""
+def phase_scale64(device, extra=(), n_holes=64):
+    """The 64-hole scale corpus through the CLI; returns (seconds, launch
+    counts).  No device step may fail over to its per-request replay."""
+    import contextlib
+    import io
+
     from ccsx_tpu_torch import cli
     from ccsx_tpu_torch.ops import cuda_ext
     from ccsx_tpu_torch.utils import synth
 
     bam = os.path.join(WORK, "in64.bam")
     out = os.path.join(WORK, "out64.fa")
-    synth.make_big_bam(bam, n_holes, np.random.default_rng(42))
+    if not os.path.exists(bam):
+        synth.make_big_bam(bam, n_holes, np.random.default_rng(42))
+    err = io.StringIO()
     cuda_ext.reset_counts()
     t0 = time.perf_counter()
-    rc = cli.main(["--device", device, bam, out])
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--device", device, *extra, bam, out])
     secs = time.perf_counter() - t0
     counts = dict(cuda_ext.LAUNCHES)
+    sys.stderr.write(err.getvalue())
     if rc != 0:
-        raise AssertionError(f"CLI exited {rc} on the scale corpus")
+        raise AssertionError(f"CLI {list(extra)} exited {rc} on the scale "
+                             "corpus")
+    if "device step failed" in err.getvalue():
+        raise AssertionError(f"CLI {list(extra)}: a device step failed over "
+                             "to its per-request replay")
     data = open(out, "rb").read()
     md5 = hashlib.md5(data).hexdigest()
-    print(f"[chip_smoke] scale corpus: {n_holes} holes in {secs:.2f}s "
-          f"({n_holes / secs:.2f} holes/s), {len(data)} bytes, md5 {md5}, "
-          f"launches {counts}", flush=True)
+    print(f"[chip_smoke] scale corpus {list(extra) or 'default'}: {n_holes} "
+          f"holes in {secs:.3f}s ({n_holes / secs:.2f} holes/s), "
+          f"{len(data)} bytes, md5 {md5}, launches {counts}", flush=True)
     if n_holes == 64 and (md5 != SCALE64_MD5 or len(data) != SCALE64_BYTES):
         raise AssertionError(f"scale corpus output {md5}/{len(data)} != "
                              f"pinned {SCALE64_MD5}/{SCALE64_BYTES}")
@@ -333,8 +430,8 @@ def phase_scale64(device, n_holes=64):
 
 
 def phase_profile(device):
-    """Where the scale corpus's time goes: a second run of it under
-    torch.profiler, device time summed by kernel name against the wall
+    """Where the scale corpus's time goes: the default (batched) run again
+    under torch.profiler, device time summed by kernel name against the wall
     time.  Returns {"wall_s", "device_s", "by_kernel": {name: s}} or None
     when the profiler records no device time."""
     import torch
@@ -460,20 +557,51 @@ def main() -> int:
           "sources", flush=True)
 
     records = phase_kernels("cuda")
-    scale_s, counts = phase_scale64("cuda")
+    # a first run loads the CUDA modules of the torch ops the drivers use
+    # (lazily, on first launch): the cold run a user's first CLI call sees,
+    # reported apart from the warm reruns
+    cold_s, _ = phase_scale64("cuda")
+    print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s",
+          flush=True)
+    arms = {"batched": [], "rotband": ["--banded-impl", "rotband"],
+            "per_hole": ["--batch", "off"]}
+    reps = {k: [] for k in arms}
+    for _ in range(2):     # alternating, so a drift falls on every arm alike
+        for k, extra in arms.items():
+            reps[k].append(phase_scale64("cuda", extra))
+    for k, rr in reps.items():
+        if rr[0][1] != rr[1][1]:
+            raise AssertionError(f"SCALE64 {k}: launch counts differ between "
+                                 f"reruns: {rr[0][1]} vs {rr[1][1]}")
+    runs = {k: rr[0] for k, rr in reps.items()}
     prof = phase_profile("cuda")
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
-    for name_k, (src, repl) in SOURCES.items():
-        if counts[name_k] <= 0:
+    # each kernel's launches on the run of the main path that carries it
+    launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
+                for k in SOURCES}
+    for name_k, n in launches.items():
+        if n <= 0:
             raise AssertionError(f"kernel {name_k} never launched on the "
                                  "main path")
+    if runs["batched"][1]["banded_rotband"] or runs["rotband"][1][
+            "banded_global"]:
+        raise AssertionError("a global-fill arm launched the other arm's "
+                             "kernel")
+    print(f"[chip_smoke] SCALE64 walls (warm, in-process; cold first run "
+          f"{cold_s:.3f}s): " + ", ".join(
+              f"{k} " + " / ".join(f"{s:.3f}s ({64 / s:.2f} holes/s)"
+                                   for s, _ in rr)
+              for k, rr in reps.items()), flush=True)
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
-                    replaces=SOURCES[k][1], launches=counts[k],
+                    replaces=SOURCES[k][1], launches=launches[k],
                     library_ms=None, **records[k]) for k in SOURCES]
     print(json.dumps({"kernels": kernels,
-                      "scale64": {"seconds": scale_s,
-                                  "holes_per_s": 64 / scale_s,
-                                  "profile": prof},
+                      "scale64": {k: {"seconds": [s for s, _ in rr],
+                                      "holes_per_s": [64 / s for s, _ in rr],
+                                      "launches": rr[0][1]}
+                                  for k, rr in reps.items()}
+                      | {"cold_first_run_s": cold_s,
+                         "profile_batched": prof},
                       "hifi": {"seconds": hifi_s,
                                "bases_per_s": hifi_bases / hifi_s,
                                "min_identity": min(idents)}}))

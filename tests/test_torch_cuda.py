@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from ccsx_tpu_torch.config import AlignParams
+from ccsx_tpu_torch.config import AlignParams, CcsConfig
 from ccsx_tpu_torch.consensus import star
-from ccsx_tpu_torch.ops import banded, banded_cuda, cuda_ext, seed, traceback
+from ccsx_tpu_torch.ops import (banded, banded_cuda, banded_rotband, cuda_ext,
+                                seed, traceback)
+from ccsx_tpu_torch.pipeline import batch
 from ccsx_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +87,88 @@ def test_local_fill_matches_plain(cuda):
         want = banded.banded_local(qs, qlens, ts, tlens, ln)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+def _slab_inputs(rng, R, qmax, tmax, holes):
+    """R rows over ``holes`` templates (one template per row, as the packed
+    round gathers them), the last row a padding row."""
+    tpls = [rng.integers(0, 4, int(rng.integers(tmax - 400, tmax - 200))
+                         ).astype(np.uint8) for _ in range(holes)]
+    qs = np.full((R, qmax), 5, np.uint8)
+    ts = np.full((R, tmax), 5, np.uint8)
+    qlens = np.zeros(R, np.int32)
+    tlens = np.zeros(R, np.int32)
+    for r in range(R - 1):
+        t = tpls[r % holes]
+        q = synth.mutate(rng, t, 0.02, 0.05, 0.05)[:qmax]
+        qs[r, :len(q)] = q
+        qlens[r] = len(q)
+        ts[r, :len(t)] = t
+        tlens[r] = len(t)
+    return [torch.from_numpy(x) for x in (qs, qlens, ts, tlens)]
+
+
+def test_rotband_fill_matches_plain_and_band_local_kernel(cuda):
+    rng = np.random.default_rng(4)
+    args = _slab_inputs(rng, 12, 768, 1024, 3)
+    dev_args = [a.to(cuda) for a in args]
+    before = cuda_ext.LAUNCHES["banded_rotband"]
+    got = banded_rotband.batched_align_global_moves(*dev_args)
+    assert cuda_ext.LAUNCHES["banded_rotband"] == before + 1
+    plain = banded_rotband.rotband_global_moves(*args)
+    local = banded_cuda.batched_align_global_moves(*dev_args)
+    for g, p, b in zip(got, plain, local):
+        assert torch.equal(g.cpu(), p)
+        assert torch.equal(g, b)
+
+
+def test_packed_refine_step_on_card_matches_cpu(cuda):
+    """One packed refine step (fill -> walk -> segment vote -> on-device
+    materialize, iters 2) on the card against the same step on the CPU,
+    under both global-fill arms."""
+    rng = np.random.default_rng(6)
+    cfg = CcsConfig(is_bam=False)
+    sm = star.StarMsa(cfg.align, device="cpu")
+    reqs = []
+    for n in (5, 9, 6):
+        tpl = rng.integers(0, 4, 700).astype(np.uint8)
+        ps = [synth.mutate(rng, tpl, 0.02, 0.05, 0.05) for _ in range(n)]
+        qs, qlens, mask = sm.pack(ps, cfg.pass_buckets, cfg.max_passes)
+        reqs.append(star.RefineRequest(qs, qlens, mask, ps[0], 2))
+    qmax = reqs[0].qs.shape[1]
+    tmax = batch._fused_tmax(max(len(r.draft) for r in reqs), 512)
+    ex = batch.BatchExecutor(cfg, device="cpu")
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            ex._stack_slab(reqs, range(len(reqs)), qmax, tmax)]
+    H = args[4].shape[0]
+    for impl in ("", "rotband"):
+        core = batch._refine_core_packed(AlignParams(), 4, tmax, 2, H,
+                                         ex._bp_consts(), impl)
+        want = core(*args)
+        got = core(*[a.to(cuda) for a in args])
+        for w, g in zip(want, got):
+            assert torch.equal(g.cpu(), w), impl
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pair_fill_group_on_card_matches_cpu(n, cuda):
+    """The strand walk's batched local fill on the card, a one-pair group
+    (whose column slices keep the wire buffer's strides) included."""
+    rng = np.random.default_rng(7)
+    t = rng.integers(0, 4, 900).astype(np.uint8)
+    big = np.full((n, 1024 + 1024), 5, np.uint8)
+    small = np.zeros((n, 6), np.int32)
+    for z in range(n):
+        q = synth.mutate(rng, t, 0.02, 0.05, 0.05)
+        big[z, :len(q)] = q
+        big[z, 1024:1024 + len(t)] = t
+        small[z] = [len(q), len(t), 0, 0, len(q), len(t)]
+    before = cuda_ext.LAUNCHES["banded_local"]
+    got = batch._pair_fill_packed(AlignParams(), 1024, 1024, cuda)(big, small)
+    assert cuda_ext.LAUNCHES["banded_local"] == before + 1
+    want = batch._pair_fill_packed(AlignParams(), 1024, 1024, "cpu")(
+        big, small)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_round_on_card_matches_cpu(cuda):

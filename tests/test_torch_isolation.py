@@ -92,8 +92,10 @@ def test_cli_refuses_to_run_on_cpu_without_asking(tmp_path, capsys):
     assert cli.main(["-A", str(fa), str(out)]) != 0
     assert "--device cpu" in capsys.readouterr().err
     assert not out.exists()
+    # asked for, the CPU runs either driver (this one-pass hole is filtered)
     assert cli.main(["-A", "--batch", "on", "--device", "cpu", str(fa),
-                     str(out)]) == 1
+                     str(out)]) == 0
+    assert out.read_text() == ""
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -154,7 +156,10 @@ def test_device_fault_ends_the_run_bad_hole_is_quarantined(
     fa.write_text(synth.make_fasta([
         synth.make_zmw(rng, 1000, 6, movie="m", hole=str(h)) for h in range(3)]))
     out = tmp_path / "out.fa"
-    argv = ["-A", "-m", "1000", "-j", str(threads), str(fa), str(out)]
+    # the per-hole driver's rules (on the card --batch auto is the batched
+    # driver, whose rules tests/test_torch_batch.py holds)
+    argv = ["-A", "-m", "1000", "--batch", "off", "-j", str(threads),
+            str(fa), str(out)]
     for exc in (cuda_ext.KernelError("banded global fill: CUDA launch failed"),
                 RuntimeError("CUDA error: an illegal memory access")):
         def fault(*a, exc=exc):
