@@ -41,6 +41,12 @@ def _lib():
         lib.ccsx_banded_local.argtypes = [
             _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
         lib.ccsx_banded_local.restype = _I
+        lib.ccsx_banded_global_warps.argtypes = [
+            _P, _I, _P, _P, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P]
+        lib.ccsx_banded_global_warps.restype = _I
+        lib.ccsx_banded_local_warps.argtypes = [
+            _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P]
+        lib.ccsx_banded_local_warps.restype = _I
         lib._ccsx_bound = True
     return lib
 
@@ -131,3 +137,37 @@ def batched_align_local(qs: torch.Tensor, qlens: torch.Tensor,
         cuda_ext.check(lib, rc, what)
         cuda_ext.count("banded_local")
     return banded.BandedResult(*out.unbind(0))
+
+
+def launch_variant(qs: torch.Tensor, qlens: torch.Tensor, ts: torch.Tensor,
+                   tlens: torch.Tensor, warps: int,
+                   lines: Optional[torch.Tensor] = None,
+                   params: AlignParams = AlignParams()):
+    """One launch of a fill kernel with ``warps`` problems per block: the
+    global fill when ``lines`` is None, else the local fill.  For timing the
+    kernels' launch choice on CUDA tensors the wrappers above have checked;
+    it counts no launch (it is no part of the main path) and returns the
+    output buffers."""
+    n, qmax = qs.shape
+    dev = qs.device
+    p = (params.match, params.mismatch, params.gap_open, params.gap_extend)
+    lib = _lib()
+    if lines is None:
+        what = "banded global fill"
+        out = (torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n, qmax, BAND), dtype=torch.uint8, device=dev),
+               torch.empty((n, qmax), dtype=torch.int32, device=dev))
+        rc = lib.ccsx_banded_global_warps(
+            qs.data_ptr(), qmax, qlens.data_ptr(), ts.data_ptr(),
+            ts.stride(0), ts.shape[1], tlens.data_ptr(), *p,
+            out[1].data_ptr(), out[2].data_ptr(), out[0].data_ptr(), n, warps,
+            cuda_ext.stream_ptr(dev))
+    else:
+        what = "banded local fill"
+        out = torch.empty((7, n), dtype=torch.int32, device=dev)
+        rc = lib.ccsx_banded_local_warps(
+            qs.data_ptr(), qmax, qlens.data_ptr(), ts.data_ptr(), ts.shape[1],
+            tlens.data_ptr(), lines.data_ptr(), *p, out.data_ptr(), n, warps,
+            cuda_ext.stream_ptr(dev))
+    cuda_ext.check(lib, rc, what)
+    return out

@@ -225,3 +225,66 @@ def make_big_bam(path, n_holes: int, rng, tlen_lo=1000, tlen_hi=5000):
             recs.append((name, enc.decode(p).encode(), None))
     bam.write_bam(path, recs, bgzf=True)
     return zs
+
+
+def _tie_pair(seed: int, tlen: Optional[int] = None):
+    """A noisy pair (found by a seed search) whose local path statistics
+    change if one level of the F scan let the earlier cell win a tie: seed
+    119 the exclusive step, seed 2100 the in-lane scan."""
+    rng = np.random.default_rng(seed)
+    n = tlen if tlen is not None else int(rng.integers(100, 250))
+    t = rng.integers(0, 4, n).astype(np.uint8)
+    q = mutate(rng, t, 0.1, 0.15, 0.15)
+    if rng.random() < 0.5:
+        q = np.concatenate([rng.integers(0, 2, int(rng.integers(1, 40))
+                                         ).astype(np.uint8), q])
+    return q, t, None
+
+
+def fill_tie_cases(rng, qmax: int = 320, tmax: int = 448):
+    """A batch for the banded fills where ties decide: homopolymers and
+    all-equal sequences (every E and F choice ties), short repeats, an
+    all-mismatch pair, qlen 0, 1 and == qmax, tlen < 128, a template much
+    longer than its query (the band clips at tcap), and noisy pairs.  Each
+    problem has a nominal line for the local fill (its corners, or a seeded
+    one: some start at li0 > 1, so the first rows' numerators are negative,
+    one falls).  Returns (qs, qlens, ts, tlens, lines) as numpy arrays:
+    uint8 (n, qmax) and (n, tmax) padded with 5, int32 (n,) and (n, 4)."""
+    def seq(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    zeros = np.zeros
+    rep = np.tile(np.array([0, 1], np.uint8), tmax)
+    tl = seq(260)
+    long_t = seq(tmax)
+    noisy = mutate(rng, tl, 0.03, 0.08, 0.08)
+    cases = [
+        (zeros(60, np.uint8), zeros(50, np.uint8), None),      # homopolymer
+        (zeros(90, np.uint8), zeros(200, np.uint8), (20, 5, 90, 190)),
+        (zeros(40, np.uint8), np.full(70, 2, np.uint8), None),  # all mismatch
+        (rep[:150], rep[:171], None),                          # repeats
+        (rep[:140], np.concatenate([rep[:60], rep[61:130]]), (3, 0, 140, 129)),
+        (np.zeros(0, np.uint8), tl[:100], None),               # qlen 0
+        (tl[:1], tl[:90], None),                               # qlen 1
+        (np.concatenate([noisy, seq(qmax)]), tl, None),        # == qmax
+        (noisy[:100], tl[:110], None),                         # tlen < 128
+        (noisy[:150], long_t, None),                           # clips at tcap
+        (noisy, tl, (40, 30, 250, 240)),                       # li0 > 1
+        (np.concatenate([seq(90), noisy[:200]]), tl, (91, 0, 290, 200)),
+        (noisy[:200], tl, (5, 100, 200, 20)),                  # falling line
+        (noisy, long_t, (60, 180, 300, 437)),                  # floor, i < li0
+        (seq(120), seq(130), None),                            # unrelated
+        _tie_pair(119, tlen=150),
+        _tie_pair(2100),
+    ]
+    cases = [(q[:qmax], t[:tmax], ln) for q, t, ln in cases]
+    qs = np.full((len(cases), qmax), 5, np.uint8)
+    ts = np.full((len(cases), tmax), 5, np.uint8)
+    for k, (q, t, _) in enumerate(cases):
+        qs[k, :len(q)] = q
+        ts[k, :len(t)] = t
+    qlens = np.array([len(q) for q, _, _ in cases], np.int32)
+    tlens = np.array([len(t) for _, t, _ in cases], np.int32)
+    lines = np.array([ln if ln is not None else (0, 0, len(q), len(t))
+                      for q, t, ln in cases], np.int32)
+    return qs, qlens, ts, tlens, lines

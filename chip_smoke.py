@@ -9,12 +9,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every kernel from csrc/ (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version on the same CUDA inputs at
    the widths the main path gives it (global fill: 32 passes, qmax 2048,
-   tmax 2560, plus an edge batch with a >4096-row final-flush window; local
-   fill: 5 kb and 15 kb pairs with and without a seeded line; traceback
-   walk: on the global fill's output; rotating-band fill: a packed slab of
-   128 rows over 4 holes' templates, qmax 2048, tmax 2560, also against
-   the band-local kernel on the same inputs, plus the edge batch) — exact
-   equality, all are integers;
+   tmax 2560, plus an edge batch with a >4096-row final-flush window and
+   the tie cases of ``synth.fill_tie_cases``; local fill: 5 kb and 15 kb
+   pairs with and without a seeded line, the edge batch with other lines,
+   the tie cases, also with their template rows padded to 32,768 bytes (the
+   body with unpacked statistics); traceback walk: on the global fill's
+   output; rotating-band fill: a packed slab of 128 rows over 4 holes'
+   templates, qmax 2048, tmax 2560, also against the band-local kernel on
+   the same inputs, plus the edge batch) — exact equality, all are
+   integers.  The two fills' launch choice (W = 1, 2, 4 problems per block)
+   is timed once at P=32, R=128 and the local table's shape;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
    through the port's CLI on the card in three arms — the default (the
    batched packed driver), ``--banded-impl rotband`` and ``--batch off`` —
@@ -24,8 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the default run going through the band-local fill, the local fill and
    the walk, and the rotband run through the rotating-band fill.  A cold
    default run comes first (the CUDA modules of the torch ops load on first
-   launch) and is reported apart.  Then the default run once more under
-   torch.profiler, for the device busy time by kernel;
+   launch) and is reported apart; it records its local-fill groups, and the
+   local fill's launch choices are timed on the one with the most rows.
+   Then the default and the rotband arm once more each under
+   torch.profiler, for the device busy time by kernel and each kernel's
+   device time per launch on the main path;
 5. 8 HiFi-size holes (15 kb templates, at least 10 passes) through the CLI
    on the card (the batched driver); each consensus must reach identity
    >= 0.99 against its template.
@@ -60,15 +67,22 @@ SCALE64_BYTES = 188359
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations of each kernel, tallied from its body in the source
-# note of csrc/banded_fill.cu and csrc/traceback_walk.cu: per query row
-# (band offset and loop) plus per band lane of each row, and per walk step
-# plus per move kind.  The rotating-band fill computes the same function as
-# the band-local one, so both are bound by the smaller tally, the band-local
-# kernel's (csrc/banded_rotband.cu notes its own larger count, 31 + 122)
-OPS_PER_ROW_GLOBAL, OPS_PER_CELL_GLOBAL = 29, 85
-OPS_PER_ROW_LOCAL, OPS_PER_CELL_LOCAL = 25, 125
+# notes of csrc/banded_fill.cu and csrc/traceback_walk.cu: for the fills,
+# per query row once (offset step, loop), per lane of the row's warp and
+# per band cell; for the walk per step plus per move kind.  The
+# rotating-band fill computes the same function as the band-local one, so
+# both are bound by the smallest tally of any body that computes it, the
+# band-local kernel's (csrc/banded_rotband.cu notes its own larger count)
+OPS_GLOBAL = dict(row=9, lane=70, cell=32)
+OPS_LOCAL = dict(row=9, lane=58, cell=57)
 OPS_PER_STEP_WALK = 27
 OPS_WALK_DIAG, OPS_WALK_INS, OPS_WALK_DEL = 5, 19, 7
+# the profiler's kernel names, by the launch counter's names
+PROFILE_NAMES = {"banded_global": "global_fill_kernel",
+                 "banded_local": "local_fill_kernel",
+                 "banded_rotband": "rotband_fill_kernel",
+                 "traceback_walk": "walk_kernel"}
+WARPS = (1, 2, 4)
 
 SOURCES = {
     "banded_global": ("ccsx_tpu_torch/csrc/banded_fill.cu",
@@ -112,6 +126,12 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 def bound_ms(nbytes: float, ops: float):
     tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def fill_ops(rows: int, tally: dict) -> int:
+    """Operations of ``rows`` query rows of a fill: per row, per lane of
+    its warp (32) and per band cell (128)."""
+    return rows * (tally["row"] + 32 * tally["lane"] + 128 * tally["cell"])
 
 
 def _pad(x, n, fill=5):
@@ -255,21 +275,28 @@ def phase_kernels(device, sizes=None):
         err = max(err, compare_global(
             banded_cuda.batched_align_global_moves(*edges),
             plain_global(*edges), edges[1].cpu().numpy()))
+    # homopolymers, repeats, qlen 0/1/qmax, tlen < 128, a band clipped at
+    # tcap: the cases where the tie rules decide
+    ties = [T(x) for x in synth.fill_tie_cases(np.random.default_rng(31))]
+    err = max(err, compare_global(
+        banded_cuda.batched_align_global_moves(*ties[:4]),
+        plain_global(*ties[:4]), ties[1].cpu().numpy()))
     if err:
         raise AssertionError(f"global fill differs from its plain version "
                              f"(max abs err {err})")
     rows = int(qlens.sum())
     nbytes = qs.size + t.size + 8 * P + P * sizes["qmax"] * (128 + 4) + 4 * P
-    b_ms, b_by = bound_ms(nbytes, rows * (OPS_PER_ROW_GLOBAL
-                                          + 128 * OPS_PER_CELL_GLOBAL))
+    b_ms, b_by = bound_ms(nbytes, fill_ops(rows, OPS_GLOBAL))
     records["banded_global"] = dict(
         max_abs_err=err, mismatches=0,
         ms=time_ms(run_kernel, sizes["reps"]),
         plain_ms=time_ms(run_plain, sizes["plain_reps"], warmup=0),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"P={P} qmax={sizes['qmax']} tmax={sizes['tmax']} band=128")
-    print(f"[chip_smoke] global fill: 0 mismatches vs plain "
-          f"({time.perf_counter() - t0:.1f}s incl. plain)", flush=True)
+        shape=f"P={P} qmax={sizes['qmax']} tmax={sizes['tmax']} band=128",
+        warps_ms={f"P={P}": time_choices(dev, (q_t, ql_t, t_t, tl_t))})
+    print(f"[chip_smoke] global fill: 0 mismatches vs plain, on the edge "
+          f"batch and the tie cases ({time.perf_counter() - t0:.1f}s incl. "
+          f"plain)", flush=True)
 
     # ---- rotating-band fill, at the packed slab's width ----
     R = sizes["R"]
@@ -304,8 +331,9 @@ def phase_kernels(device, sizes=None):
     rows = int(sql.sum())
     nbytes = (sq.numel() + sts.numel() + 8 * R
               + R * sizes["qmax"] * (128 + 4) + 4 * R)
-    b_ms, b_by = bound_ms(nbytes, rows * (OPS_PER_ROW_GLOBAL
-                                          + 128 * OPS_PER_CELL_GLOBAL))
+    b_ms, b_by = bound_ms(nbytes, fill_ops(rows, OPS_GLOBAL))
+    records["banded_global"]["warps_ms"][f"R={R}"] = time_choices(
+        dev, (sq, sql, sts, stl))
     records["banded_rotband"] = dict(
         max_abs_err=err, mismatches=0, ms=time_ms(run_rot, sizes["reps"]),
         band_local_ms_same_inputs=time_ms(run_local_layout, sizes["reps"]),
@@ -361,6 +389,16 @@ def phase_kernels(device, sizes=None):
     def run_local():
         return banded_cuda.batched_align_local(lq, lql, lt, ltl, lines)
 
+    def compare_local(*a):
+        kl = torch.stack(list(banded_cuda.batched_align_local(*a)))
+        pl = torch.stack(list(banded.banded_local(*a)))
+        err = max_err(kl, pl)
+        if err:
+            raise AssertionError(f"local fill differs from its plain version "
+                                 f"(max abs err {err}): {kl.tolist()} vs "
+                                 f"{pl.tolist()}")
+        return err
+
     t0 = time.perf_counter()
     kl = torch.stack(list(run_local()))
     if dev.type == "cuda":
@@ -377,27 +415,75 @@ def phase_kernels(device, sizes=None):
         raise AssertionError(f"local fill differs from its plain version "
                              f"(max abs err {err}): {kl.tolist()} vs "
                              f"{pl.tolist()}")
+    if edges:
+        err = max(err, compare_local(*edge_local(edges, seed)))
+    # the tie cases, also with the template rows padded to 32,768 bytes:
+    # the body with unpacked statistics (qmax + tmax + 128 >= 32768)
+    wide = torch.full((len(ties[2]), 32768), 5, dtype=torch.uint8, device=dev)
+    wide[:, :ties[2].shape[1]] = ties[2]
+    err = max(err, compare_local(*ties),
+              compare_local(*ties[:4], banded.corner_lines(ties[1], ties[3])),
+              compare_local(ties[0], ties[1], wide, ties[3], ties[4]))
     rows = int(lql.sum())
     nbytes = lq.numel() + lt.numel() + 16 * len(lql) + 8 * len(lql) + 28 * len(lql)
-    b_ms, b_by = bound_ms(nbytes, rows * (OPS_PER_ROW_LOCAL
-                                          + 128 * OPS_PER_CELL_LOCAL))
+    b_ms, b_by = bound_ms(nbytes, fill_ops(rows, OPS_LOCAL))
     records["banded_local"] = dict(
         max_abs_err=err, mismatches=0, ms=time_ms(run_local, sizes["reps"]),
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        shape=f"n={len(lql)} pairs of 5 and 15 kb, corner and seeded lines")
-    print(f"[chip_smoke] local fill: 0 mismatches vs plain "
-          f"({time.perf_counter() - t0:.1f}s incl. plain)", flush=True)
+        shape=f"n={len(lql)} pairs of 5 and 15 kb, corner and seeded lines",
+        warps_ms={"table shape": time_choices(dev, (lq, lql, lt, ltl), lines)})
+    print(f"[chip_smoke] local fill: 0 mismatches vs plain, on the edge batch "
+          f"and the tie cases ({time.perf_counter() - t0:.1f}s incl. plain)",
+          flush=True)
     return records
 
 
-def phase_scale64(device, extra=(), n_holes=64):
+def edge_local(edges, seed):
+    """The edge batch for the local fill: each problem once with its corner
+    line and once with another (a line starting at li0 > 1, a seeded line,
+    a falling line, a line whose slope is not a whole number)."""
+    import torch
+
+    qs, qlens, ts, tlens = edges
+    ql = qlens.tolist()
+    tl = tlens.tolist()
+    q4 = qs[4, :ql[4]].cpu().numpy()
+    hit = seed.seed_diagonal(q4, ts[4, :tl[4]].cpu().numpy())
+    other = [[0, 0, 0, tl[0]], [2, 1, 7, 6],
+             [60, 200, ql[2], tl[2] + 37], [5, 300, 200, 20],
+             list(hit.line) if hit is not None else [0, 0, ql[4], tl[4]]]
+    corner = [[0, 0, q, t] for q, t in zip(ql, tl)]
+    lines = torch.tensor(corner + other, dtype=torch.int32, device=qs.device)
+    return (torch.cat([qs, qs]), torch.cat([qlens, qlens]),
+            torch.cat([ts, ts]), torch.cat([tlens, tlens]), lines)
+
+
+def time_choices(dev, args, lines=None, reps=10):
+    """Milliseconds of each launch choice of a fill on the same inputs, W
+    problems per block ("not measured" off the card)."""
+    from ccsx_tpu_torch.ops import banded_cuda
+
+    if dev.type != "cuda":
+        return "not measured"
+    out = {}
+    for w in WARPS:
+        out[f"W={w}"] = time_ms(lambda: banded_cuda.launch_variant(
+            *args, w, lines), reps)
+    print(f"[chip_smoke]   launch choices, {len(args[0])} problems: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+    return out
+
+
+def phase_scale64(device, extra=(), n_holes=64, record=None):
     """The 64-hole scale corpus through the CLI; returns (seconds, launch
-    counts).  No device step may fail over to its per-request replay."""
+    counts).  No device step may fail over to its per-request replay.  A
+    ``record`` list receives a copy of the inputs of every local-fill launch
+    (its groups of strand-walk pairs)."""
     import contextlib
     import io
 
     from ccsx_tpu_torch import cli
-    from ccsx_tpu_torch.ops import cuda_ext
+    from ccsx_tpu_torch.ops import banded_cuda, cuda_ext
     from ccsx_tpu_torch.utils import synth
 
     bam = os.path.join(WORK, "in64.bam")
@@ -405,10 +491,19 @@ def phase_scale64(device, extra=(), n_holes=64):
     if not os.path.exists(bam):
         synth.make_big_bam(bam, n_holes, np.random.default_rng(42))
     err = io.StringIO()
+    local = banded_cuda.batched_align_local
+    if record is not None:
+        def recording(*a, **k):
+            record.append([x.clone() for x in a[:5]])
+            return local(*a, **k)
+        banded_cuda.batched_align_local = recording
     cuda_ext.reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = cli.main(["--device", device, *extra, bam, out])
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["--device", device, *extra, bam, out])
+    finally:
+        banded_cuda.batched_align_local = local
     secs = time.perf_counter() - t0
     counts = dict(cuda_ext.LAUNCHES)
     sys.stderr.write(err.getvalue())
@@ -429,24 +524,28 @@ def phase_scale64(device, extra=(), n_holes=64):
     return secs, counts
 
 
-def phase_profile(device):
-    """Where the scale corpus's time goes: the default (batched) run again
-    under torch.profiler, device time summed by kernel name against the wall
-    time.  Returns {"wall_s", "device_s", "by_kernel": {name: s}} or None
+def phase_profile(device, extra=()):
+    """Where the scale corpus's time goes: a run of one arm again under
+    torch.profiler, device time summed by kernel name against the wall
+    time, and each port kernel's device time per launch of that run.
+    Returns {"wall_s", "device_s", "top_kernels", "ms_per_launch"} or None
     when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.ops import cuda_ext
 
     bam = os.path.join(WORK, "in64.bam")
     out = os.path.join(WORK, "out64_prof.fa")
+    cuda_ext.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(["--device", device, bam, out])
+        rc = cli.main(["--device", device, *extra, bam, out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = dict(cuda_ext.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"CLI exited {rc} under the profiler")
     by = {}
@@ -461,13 +560,21 @@ def phase_profile(device):
         return None
     dev_s = sum(by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[chip_smoke] profile of the scale corpus: wall {wall:.3f}s "
-          f"(under the profiler), device busy {dev_s:.3f}s "
-          f"({100 * dev_s / wall:.1f}%)", flush=True)
+    per_launch = {}
+    for name, sym in PROFILE_NAMES.items():
+        s = sum(v for k, v in by.items() if sym in k)
+        if counts[name]:
+            per_launch[name] = s * 1e3 / counts[name]
+    print(f"[chip_smoke] profile of the scale corpus {list(extra) or 'default'}"
+          f": wall {wall:.3f}s (under the profiler), device busy {dev_s:.3f}s "
+          f"({100 * dev_s / wall:.1f}%), launches {counts}", flush=True)
     for k, v in top:
         print(f"[chip_smoke]   {v * 1e3:9.2f} ms  {k[:90]}")
+    print("[chip_smoke]   device ms per launch: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_launch.items()), flush=True)
     return {"wall_s": wall, "device_s": dev_s,
-            "top_kernels": [[k[:80], v] for k, v in top]}
+            "top_kernels": [[k[:80], v] for k, v in top],
+            "ms_per_launch": per_launch}
 
 
 def phase_hifi(device, n_holes=8, tlen=15000, min_identity=0.99,
@@ -560,9 +667,16 @@ def main() -> int:
     # a first run loads the CUDA modules of the torch ops the drivers use
     # (lazily, on first launch): the cold run a user's first CLI call sees,
     # reported apart from the warm reruns
-    cold_s, _ = phase_scale64("cuda")
-    print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s",
-          flush=True)
+    groups = []
+    cold_s, _ = phase_scale64("cuda", record=groups)
+    print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s "
+          f"(recording its {len(groups)} local-fill groups)", flush=True)
+    # the local fill's launch choices on the scale corpus's own group with
+    # the most query rows
+    big = max(groups, key=lambda g: int(g[1].sum()))
+    records["banded_local"]["warps_ms"][
+        f"SCALE64 group, {len(big[0])} pairs, qmax {big[0].shape[1]}"] = \
+        time_choices(torch.device("cuda"), big[:4], big[4])
     arms = {"batched": [], "rotband": ["--banded-impl", "rotband"],
             "per_hole": ["--batch", "off"]}
     reps = {k: [] for k in arms}
@@ -575,6 +689,7 @@ def main() -> int:
                                  f"reruns: {rr[0][1]} vs {rr[1][1]}")
     runs = {k: rr[0] for k, rr in reps.items()}
     prof = phase_profile("cuda")
+    prof_rot = phase_profile("cuda", arms["rotband"])
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
@@ -592,16 +707,21 @@ def main() -> int:
               f"{k} " + " / ".join(f"{s:.3f}s ({64 / s:.2f} holes/s)"
                                    for s, _ in rr)
               for k, rr in reps.items()), flush=True)
+    # each kernel's device time per launch in the profiled run of its arm
+    per_launch = {k: ((prof_rot if k == "banded_rotband" else prof) or {}
+                      ).get("ms_per_launch", {}).get(k) for k in SOURCES}
     kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
                     replaces=SOURCES[k][1], launches=launches[k],
-                    library_ms=None, **records[k]) for k in SOURCES]
+                    library_ms=None, main_path_ms_per_launch=per_launch[k],
+                    **records[k]) for k in SOURCES]
     print(json.dumps({"kernels": kernels,
                       "scale64": {k: {"seconds": [s for s, _ in rr],
                                       "holes_per_s": [64 / s for s, _ in rr],
                                       "launches": rr[0][1]}
                                   for k, rr in reps.items()}
                       | {"cold_first_run_s": cold_s,
-                         "profile_batched": prof},
+                         "profile_batched": prof,
+                         "profile_rotband": prof_rot},
                       "hifi": {"seconds": hifi_s,
                                "bases_per_s": hifi_bases / hifi_s,
                                "min_identity": min(idents)}}))

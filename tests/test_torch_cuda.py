@@ -184,3 +184,80 @@ def test_round_on_card_matches_cpu(cuda):
                  "aligned", "ins_cnt", "lead_ins"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
                                       err_msg=name)
+
+
+def _global_equal(got, want):
+    (ks, km, ko), (pr, pm, po) = got, want
+    assert torch.equal(ks.cpu(), pr.score)
+    assert torch.equal(ko.cpu(), po)
+    assert torch.equal(km.cpu(), pm)     # rows beyond qlen are zero in both
+
+
+def test_fills_on_tie_cases_match_plain(cuda):
+    """Homopolymers, all-equal and all-mismatch pairs, repeats, qlen 0, 1
+    and == qmax, tlen < 128, a band clipped at tcap, seeded lines with
+    li0 > 1 and a falling one, and pairs where each level of the F scan's
+    tie rule decides the local statistics (synth.fill_tie_cases); the local
+    fill with packed and with unpacked statistics."""
+    qs, qlens, ts, tlens, lines = (torch.from_numpy(x) for x in
+                                   synth.fill_tie_cases(
+                                       np.random.default_rng(31)))
+    dev = [x.to(cuda) for x in (qs, qlens, ts, tlens, lines)]
+    _global_equal(banded_cuda.batched_align_global_moves(*dev[:4]),
+                  banded.banded_global_moves(qs, qlens, ts, tlens))
+    # a template row padded to 32,768 bytes takes the local fill's body
+    # with unpacked statistics (qmax + tmax + 128 >= 32768)
+    wide = torch.full((len(ts), 32768), 5, dtype=torch.uint8)
+    wide[:, :ts.shape[1]] = ts
+    for t_in in (ts, wide):
+        for ln in (None, lines):
+            got = banded_cuda.batched_align_local(
+                dev[0], dev[1], t_in.to(cuda), dev[3],
+                None if ln is None else ln.to(cuda))
+            want = banded.banded_local(qs, qlens, t_in, tlens, ln)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_fills_part_filled_blocks_match_plain(warps, cuda):
+    """One problem, and warps + 1 problems (a part-filled last block), at
+    each number of problems per block."""
+    qs, qlens, ts, tlens, lines = (torch.from_numpy(x) for x in
+                                   synth.fill_tie_cases(
+                                       np.random.default_rng(8)))
+    for n in (1, warps + 1):
+        sel = [x[-n:].contiguous() for x in (qs, qlens, ts, tlens, lines)]
+        dev = [x.to(cuda) for x in sel]
+        score, moves, offs = banded_cuda.launch_variant(*dev[:4], warps)
+        _global_equal((score, moves, offs),
+                      banded.banded_global_moves(*sel[:4]))
+        want = torch.stack(list(banded.banded_local(*sel)))
+        got = banded_cuda.launch_variant(*dev[:4], warps, dev[4])
+        assert torch.equal(got.cpu(), want), n
+
+
+def test_fills_long_window_match_plain(cuda):
+    """A final-flush-sized window: more than 4096 query rows (past the
+    Pallas kernel's cap), the template a row of an odd-width buffer so
+    its rows are not word-aligned."""
+    rng = np.random.default_rng(9)
+    t = rng.integers(0, 4, 4500).astype(np.uint8)
+    q = synth.mutate(rng, t, 0.02, 0.05, 0.05)
+    qmax, tmax = len(q) + 3, 4733
+    qs = torch.full((2, qmax), 5, dtype=torch.uint8)
+    ts = torch.full((2, tmax), 5, dtype=torch.uint8)
+    qs[0, :len(q)] = torch.from_numpy(q)
+    qs[1, :300] = torch.from_numpy(q[1000:1300])
+    ts[:, :len(t)] = torch.from_numpy(t)
+    qlens = torch.tensor([len(q), 300], dtype=torch.int32)
+    tlens = torch.full((2,), len(t), dtype=torch.int32)
+    dev = [x.to(cuda) for x in (qs, qlens, ts, tlens)]
+    _global_equal(banded_cuda.batched_align_global_moves(*dev),
+                  banded.banded_global_moves(qs, qlens, ts, tlens))
+    lines = torch.tensor([[0, 0, len(q), len(t)], [1, 1000, 300, 1300]],
+                         dtype=torch.int32)
+    got = banded_cuda.batched_align_local(*dev, lines.to(cuda))
+    want = banded.banded_local(qs, qlens, ts, tlens, lines)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
