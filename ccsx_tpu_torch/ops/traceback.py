@@ -10,9 +10,11 @@ template-anchored projection the column vote consumes:
   lead_ins     query bases consumed before template column 0
 
 The walk goes cell by cell from (qlen, tlen) back to (0, 0), the JAX
-package's ``make_projector_reference`` (its default projector).  On CUDA
-tensors ``project`` launches csrc/traceback_walk.cu; on CPU tensors it
-runs ``project_plain``, the same walk in Python.
+package's ``make_projector_reference`` (its default projector), with qlen
+clamped to [0, qmax] and tlen to [0, tmax].  On CUDA tensors ``project``
+launches csrc/traceback_walk.cu (a row-level chain over a shared-memory
+ring of move rows; its source note says how it stays exact); on CPU
+tensors it runs ``project_plain``, the same walk in Python.
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ def _walk_one(mv, of, q, qlen, tlen, max_ins, aligned, ins_cnt, ins_b):
 def project_plain(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
                   qlens: torch.Tensor, tlens: torch.Tensor, tmax: int,
                   max_ins: int = 4):
-    """The walk over a batch of passes (plain version, on the host).
-    Returns (aligned (P, tmax) uint8, ins_cnt (P, tmax) int32,
+    """The walk over a batch of passes (plain version, on the host), with
+    each qlen clamped to [0, qmax] and each tlen to [0, tmax].  Returns (aligned (P, tmax) uint8, ins_cnt (P, tmax) int32,
     ins_b (P, tmax, max_ins) uint8, lead_ins (P,) int32) on moves' device."""
     mv = moves.cpu().numpy()
     of = offs.cpu().numpy()
@@ -84,8 +86,10 @@ def project_plain(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
     aligned = np.full((P, tmax), PAD, np.uint8)
     ins_cnt = np.zeros((P, tmax + 1), np.int32)
     ins_b = np.full((P, tmax + 1, max_ins), PAD, np.uint8)
+    qmax = mv.shape[1]
     for p in range(P):
-        _walk_one(mv[p], of[p], q[p], int(ql[p]), int(tl[p]), max_ins,
+        _walk_one(mv[p], of[p], q[p], min(max(int(ql[p]), 0), qmax),
+                  min(max(int(tl[p]), 0), tmax), max_ins,
                   aligned[p], ins_cnt[p], ins_b[p])
     # left-justify the right-aligned insertion cells
     used = np.minimum(ins_cnt, max_ins)
@@ -107,6 +111,9 @@ def _lib():
         lib.ccsx_traceback_walk.argtypes = [
             P, P, P, I, P, P, I, I, P, P, P, P, I, P]
         lib.ccsx_traceback_walk.restype = I
+        lib.ccsx_traceback_walk_variant.argtypes = [
+            P, P, P, I, P, P, I, I, P, P, P, P, I, I, I, I, P]
+        lib.ccsx_traceback_walk_variant.restype = I
         lib._ccsx_bound = True
     return lib
 
@@ -115,9 +122,9 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
             qlens: torch.Tensor, tlens: torch.Tensor, tmax: int,
             max_ins: int = 4):
     """The walk over a batch of passes: the kernel on CUDA tensors, the
-    plain version on CPU tensors.  Same outputs as ``project_plain``.  The
-    kernel clamps qlens to [0, qmax] and tlens to [0, tmax]; they are not
-    read back to be checked."""
+    plain version on CPU tensors.  Same outputs as ``project_plain``.  Both
+    clamp qlens to [0, qmax] and tlens to [0, tmax]; they are not read back
+    to be checked."""
     if moves.device.type == "cpu":
         return project_plain(moves, offs, qs, qlens, tlens, tmax, max_ins)
     what = "traceback walk"
@@ -153,3 +160,27 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
         cuda_ext.check(lib, rc, what)
         cuda_ext.count("traceback_walk")
     return aligned, ins_cnt, ins_b, lead
+
+
+def launch_variant(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
+                   qlens: torch.Tensor, tlens: torch.Tensor, tmax: int,
+                   max_ins: int, rows: int, stages: int, threads: int):
+    """One launch of the walk kernel with a chosen ring (``rows`` per stage,
+    32 or 64; ``stages``, 2, 4 or 8; ``threads`` per block, 96 or 128), for
+    timing the launch choice on CUDA tensors that ``project`` takes.  It
+    counts no launch (it is no part of the main path) and returns the
+    outputs."""
+    P, qmax, _ = moves.shape
+    dev = moves.device
+    out = (torch.empty((P, tmax), dtype=torch.uint8, device=dev),
+           torch.empty((P, tmax), dtype=torch.int32, device=dev),
+           torch.empty((P, tmax, max_ins), dtype=torch.uint8, device=dev),
+           torch.empty((P,), dtype=torch.int32, device=dev))
+    lib = _lib()
+    rc = lib.ccsx_traceback_walk_variant(
+        moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
+        qlens.data_ptr(), tlens.data_ptr(), tmax, max_ins,
+        *(x.data_ptr() for x in out), P, rows, stages, threads,
+        cuda_ext.stream_ptr(dev))
+    cuda_ext.check(lib, rc, "traceback walk")
+    return out

@@ -288,3 +288,55 @@ def fill_tie_cases(rng, qmax: int = 320, tmax: int = 448):
     lines = np.array([ln if ln is not None else (0, 0, len(q), len(t))
                       for q, t, ln in cases], np.int32)
     return qs, qlens, ts, tlens, lines
+
+
+def walk_cases(rng, qmax: int = 256, tmax: int = 320, n: int = 24):
+    """A batch for the traceback walk whose move bytes no fill produces:
+    random bytes (choice 3 and random E/F bits and high bits among them)
+    over offsets that are random, non-monotone, or push the walk's lanes
+    out of [0, 127] on either side; and lengths at and beyond the edges:
+    qlen 0, tlen 0, qlen == qmax, tlen == tmax, negative, and above qmax
+    and tmax (the walk clamps them); some rows have every F bit set.  Half the passes have fill-like bytes
+    (mostly diagonals, short gap runs, one long insertion run) over a
+    drifting band.  Returns
+    (moves (n, qmax, 128) uint8, offs (n, qmax) int32, qs (n, qmax) uint8,
+    qlens (n,) int32, tlens (n,) int32)."""
+    lens = [(0, 50), (40, 0), (0, 0), (qmax, tmax), (qmax, 100), (30, tmax),
+            (-5, 60), (70, -3), (qmax + 7, tmax + 9), (1, 1), (qmax, 1),
+            (1, tmax)]
+    moves = np.zeros((n, qmax, 128), np.uint8)
+    offs = np.zeros((n, qmax), np.int32)
+    qs = rng.integers(0, 4, (n, qmax)).astype(np.uint8)
+    qlens = np.zeros(n, np.int32)
+    tlens = np.zeros(n, np.int32)
+    rows = np.arange(qmax)
+    for k in range(n):
+        if k < len(lens):
+            ql, tl = lens[k]
+        else:
+            ql, tl = (int(x) for x in rng.integers(1, (qmax, tmax)))
+        qlens[k], tlens[k] = ql, tl
+        kind = k % 4
+        if kind == 0:       # fill-like bytes over a drifting band
+            choice = rng.choice(4, (qmax, 128), p=[0.8, 0.08, 0.08, 0.04])
+            ebit = (rng.random((qmax, 128)) < 0.3) * 4
+            fbit = (rng.random((qmax, 128)) < 0.3) * 8
+            moves[k] = choice + ebit + fbit
+            # an insertion run longer than any max_ins: 24 rows of up moves
+            # whose E bit holds the walk in the E state
+            r0 = int(rng.integers(0, max(qmax - 24, 1)))
+            moves[k, r0:r0 + 24] = 1 + 4
+            slope = max(tl, 1) / max(ql, 1)
+            offs[k] = (rows * slope).astype(np.int64) - 64 \
+                + rng.integers(-3, 4, qmax)
+        else:               # any byte at all
+            moves[k] = rng.integers(0, 256, (qmax, 128))
+            # rows whose every F bit is set: a run that reaches lane 0
+            moves[k, rng.integers(0, qmax, qmax // 8)] |= 8
+            if kind == 1:   # a random, non-monotone walk of offsets
+                offs[k] = np.cumsum(rng.integers(-40, 41, qmax)) - 64
+            elif kind == 2:  # far right of the lanes, or far left
+                offs[k] = rng.choice([-400, 0, 500], qmax)
+            else:
+                offs[k] = rng.integers(-300, tmax + 300, qmax)
+    return moves, offs, qs, qlens, tlens

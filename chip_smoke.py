@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ccsx_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-walk SRC] [--kernels-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -14,11 +14,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    pairs with and without a seeded line, the edge batch with other lines,
    the tie cases, also with their template rows padded to 32,768 bytes (the
    body with unpacked statistics); traceback walk: on the global fill's
-   output; rotating-band fill: a packed slab of 128 rows over 4 holes'
+   output, the edge batch's and the tie cases', random move bytes with
+   lanes out of the band and edge lengths at max_ins 1, 4 and 16
+   (``synth.walk_cases``), and R=200 passes; rotating-band fill: a packed slab of 128 rows over 4 holes'
    templates, qmax 2048, tmax 2560, also against the band-local kernel on
    the same inputs, plus the edge batch) — exact equality, all are
    integers.  The two fills' launch choice (W = 1, 2, 4 problems per block)
-   is timed once at P=32, R=128 and the local table's shape;
+   is timed once at P=32, R=128 and the local table's shape, the walk's
+   ring choices (rows per stage, stages, threads) at P=32, the walk's
+   longest pass alone (its ns per row step), and, with ``--parent-walk``,
+   the parent commit's walk against this one in turns;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
    through the port's CLI on the card in three arms — the default (the
    batched packed driver), ``--banded-impl rotband`` and ``--batch off`` —
@@ -75,14 +80,26 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # band-local kernel's (csrc/banded_rotband.cu notes its own larger count)
 OPS_GLOBAL = dict(row=9, lane=70, cell=32)
 OPS_LOCAL = dict(row=9, lane=58, cell=57)
+# the walk: the first design's cell walk, per cell step plus per move kind,
+# and the row chain of csrc/traceback_walk.cu, per step that takes one row
+# (an insertion), per jumped deletion run and per run of diagonals (28 on
+# each of the walker warp's 32 lanes); the bound takes the smaller tally on
+# each run's data, since the two compute one function
 OPS_PER_STEP_WALK = 27
 OPS_WALK_DIAG, OPS_WALK_INS, OPS_WALK_DEL = 5, 19, 7
+OPS_WALK_ROW, OPS_WALK_RUN, OPS_WALK_DIAG_RUN = 40, 30, 32 * 28
 # the profiler's kernel names, by the launch counter's names
 PROFILE_NAMES = {"banded_global": "global_fill_kernel",
                  "banded_local": "local_fill_kernel",
                  "banded_rotband": "rotband_fill_kernel",
                  "traceback_walk": "walk_kernel"}
 WARPS = (1, 2, 4)
+# the walk's ring choices: rows per stage, stages, threads per block
+WALK_RINGS = ((32, 2, 96), (32, 4, 96), (32, 8, 96), (64, 4, 96),
+              (64, 8, 96), (32, 4, 128))
+# --parent-walk SRC: a copy of the parent commit's csrc/traceback_walk.cu,
+# timed against this one (never part of the checkout)
+PARENT_WALK: dict = {}
 
 SOURCES = {
     "banded_global": ("ccsx_tpu_torch/csrc/banded_fill.cu",
@@ -357,8 +374,30 @@ def phase_kernels(device, sizes=None):
     def run_walk_plain():
         return traceback.project_plain(moves, offs, q_t, ql_t, tl_t, tmax, 4)
 
+    def walk_err(args, tmax_, max_ins):
+        kw = traceback.project(*args, tmax_, max_ins)
+        pw = traceback.project_plain(*args, tmax_, max_ins)
+        return max(max_err(a, b) for a, b in zip(kw, pw))
+
+    t0 = time.perf_counter()
     kw, pw = run_walk(), run_walk_plain()
     err = max(max_err(a, b) for a, b in zip(kw, pw))
+    # the edge batch's and the tie cases' fill outputs, random move bytes
+    # (out-of-band lanes, edge lengths, max_ins 1/4/16) and R=200 passes
+    if edges:
+        _, em, eo = banded_cuda.batched_align_global_moves(*edges)
+        err = max(err, walk_err((em, eo, edges[0], edges[1], edges[3]),
+                                edges[2].shape[1], 4))
+    _, tm, to = banded_cuda.batched_align_global_moves(*ties[:4])
+    err = max(err, walk_err((tm, to, ties[0], ties[1], ties[3]),
+                            ties[2].shape[1], 4))
+    for max_ins in (1, 4, 16):
+        err = max(err, walk_err([T(x) for x in synth.walk_cases(
+            np.random.default_rng(5), 256, 320)], 320, max_ins))
+    err = max(err, walk_err([T(x) for x in synth.walk_cases(
+        np.random.default_rng(6), 203, 251)], 251, 4))
+    err = max(err, walk_err([T(x) for x in synth.walk_cases(
+        np.random.default_rng(7), sizes["qmax"], tmax, n=200)], tmax, 4))
     if err:
         raise AssertionError(f"traceback walk differs from its plain version "
                              f"(max abs err {err})")
@@ -367,16 +406,35 @@ def phase_kernels(device, sizes=None):
     dels = int((kw[0][:, :tlen] == traceback.GAP).sum())
     diag = P * tlen - dels
     ins = int(qlens.sum()) - diag
-    steps = diag + ins + dels
-    nbytes = steps + P * sizes["qmax"] * 4 + qs.size + P * tmax * (1 + 4 + 4) + 4 * P
-    b_ms, b_by = bound_ms(nbytes, steps * OPS_PER_STEP_WALK
-                          + diag * OPS_WALK_DIAG + ins * OPS_WALK_INS
-                          + dels * OPS_WALK_DEL)
+    steps = walk_row_steps(kw, qlens, tlen)
+    del_runs = int(steps.sum() - (qlens - kw[3].cpu().numpy()).sum())
+    nbytes = (diag + ins + dels + P * sizes["qmax"] * 4 + qs.size
+              + P * tmax * (1 + 4 + 4) + 4 * P)
+    ops = min((diag + ins + dels) * OPS_PER_STEP_WALK + diag * OPS_WALK_DIAG
+              + ins * OPS_WALK_INS + dels * OPS_WALK_DEL,
+              ins * OPS_WALK_ROW + del_runs * OPS_WALK_RUN
+              + walk_diag_runs(kw, tlen) * OPS_WALK_DIAG_RUN)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    ms = time_ms(run_walk, sizes["reps"])
+    # the chain alone: the longest pass (in row steps) by itself
+    big = int(steps.argmax())
+    one = [x[big:big + 1] for x in (moves, offs, q_t, ql_t, tl_t)]
+    one_ms = time_ms(lambda: traceback.project(*one, tmax, 4), sizes["reps"])
     records["traceback_walk"] = dict(
-        max_abs_err=err, mismatches=0, ms=time_ms(run_walk, sizes["reps"]),
+        max_abs_err=err, mismatches=0, ms=ms,
         plain_ms=time_ms(run_walk_plain, sizes["plain_reps"], warmup=0),
-        bound_ms=b_ms, bound_by=b_by, shape=f"P={P} tmax={tmax} max_ins=4")
-    print("[chip_smoke] traceback walk: 0 mismatches vs plain", flush=True)
+        bound_ms=b_ms, bound_by=b_by, shape=f"P={P} tmax={tmax} max_ins=4",
+        row_steps_longest_pass=int(steps[big]), longest_pass_ms=one_ms,
+        ns_per_row_step=one_ms * 1e6 / int(steps[big]),
+        ring_ms=time_rings(dev, (moves, offs, q_t, ql_t, tl_t), tmax),
+        parent_ms=time_parent_walk(dev, (moves, offs, q_t, ql_t, tl_t), tmax,
+                                   run_walk, sizes["reps"]))
+    print(f"[chip_smoke] traceback walk: 0 mismatches vs plain, on the edge "
+          f"batch, the tie cases, random bytes and R=200 "
+          f"({time.perf_counter() - t0:.1f}s incl. plain); {ms:.4f} ms at "
+          f"P={P}; longest pass {int(steps[big])} row steps in "
+          f"{one_ms:.4f} ms = {one_ms * 1e6 / int(steps[big]):.1f} ns a step",
+          flush=True)
 
     # ---- local fill + stats, at the strand walk's pair lengths ----
     if sizes["local"]:
@@ -472,6 +530,92 @@ def time_choices(dev, args, lines=None, reps=10):
     print(f"[chip_smoke]   launch choices, {len(args[0])} problems: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
     return out
+
+
+def walk_row_steps(walk_out, qlens, tlen):
+    """Each pass's row steps in the walk kernel's chain: one per query row
+    consumed before column 0, plus one per deletion run (a maximal run of
+    GAP columns with no insertion slot inside it)."""
+    aligned, ins_cnt, _, lead = (x.cpu().numpy() for x in walk_out)
+    gap = aligned[:, :tlen] == 4
+    nxt = np.concatenate([gap[:, 1:], np.zeros((len(gap), 1), bool)], 1)
+    runs = (gap & ~(nxt & (ins_cnt[:, :tlen] == 0))).sum(1)
+    return (qlens - lead) + runs
+
+
+def walk_diag_runs(walk_out, tlen):
+    """The maximal runs of diagonal columns (no insertion slot inside) of
+    every pass: the steps the walker warp takes down the diagonal (at
+    least)."""
+    aligned, ins_cnt = (x.cpu().numpy() for x in walk_out[:2])
+    diag = aligned[:, :tlen] != 4
+    nxt = np.concatenate([diag[:, 1:], np.zeros((len(diag), 1), bool)], 1)
+    return int((diag & ~(nxt & (ins_cnt[:, :tlen] == 0))).sum())
+
+
+def time_rings(dev, args, tmax, reps=10):
+    """Milliseconds of each ring choice of the walk on the same inputs:
+    rows per stage, stages, threads per block ("not measured" off the
+    card)."""
+    from ccsx_tpu_torch.ops import traceback
+
+    if dev.type != "cuda":
+        return "not measured"
+    out = {}
+    for rows, stages, threads in WALK_RINGS:
+        out[f"T={rows} S={stages} threads={threads}"] = time_ms(
+            lambda: traceback.launch_variant(*args, tmax, 4, rows, stages,
+                                             threads), reps)
+    print("[chip_smoke]   walk rings: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+    return out
+
+
+def time_parent_walk(dev, args, tmax, run_walk, reps):
+    """The parent commit's walk kernel against this one on the same inputs,
+    in turns (parent, new, new, parent), when ``--parent-walk SRC`` names a
+    copy of its source; None otherwise.  Its outputs must equal this
+    kernel's."""
+    import ctypes
+
+    import torch
+
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    src = PARENT_WALK.get("src")
+    if not src or dev.type != "cuda":
+        return None
+    so = os.path.join(WORK, "parent_walk.so")
+    subprocess.run([cuda_ext._nvcc(), *cuda_ext.NVCC_FLAGS, "-o", so, src],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(so)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.ccsx_traceback_walk.argtypes = [P_, P_, P_, I_, P_, P_, I_, I_, P_,
+                                        P_, P_, P_, I_, P_]
+    moves, offs, qs, qlens, tlens = args
+    n, qmax, _ = moves.shape
+    out = (torch.empty((n, tmax), dtype=torch.uint8, device=dev),
+           torch.empty((n, tmax), dtype=torch.int32, device=dev),
+           torch.empty((n, tmax, 4), dtype=torch.uint8, device=dev),
+           torch.empty((n,), dtype=torch.int32, device=dev))
+
+    def run_parent():
+        rc = lib.ccsx_traceback_walk(
+            moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
+            qlens.data_ptr(), tlens.data_ptr(), tmax, 4,
+            *(x.data_ptr() for x in out), n, cuda_ext.stream_ptr(dev))
+        if rc:
+            raise AssertionError(f"parent walk launch failed ({rc})")
+
+    run_parent()
+    for a, b in zip(out, run_walk()):
+        if not torch.equal(a, b):
+            raise AssertionError("the parent's walk and this one differ")
+    times = [time_ms(f, reps) for f in (run_parent, run_walk, run_walk,
+                                        run_parent)]
+    print("[chip_smoke]   walk, parent / new / new / parent: "
+          + " / ".join(f"{t:.4f}" for t in times) + " ms", flush=True)
+    return {"order": "parent, new, new, parent", "ms": times}
 
 
 def phase_scale64(device, extra=(), n_holes=64, record=None):
@@ -628,9 +772,20 @@ def phase_hifi(device, n_holes=8, tlen=15000, min_identity=0.99,
     return secs, bases_in, idents
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-walk", metavar="SRC",
+                    help="a copy of the parent commit's traceback_walk.cu, "
+                         "timed against this walk in phase 3")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (the kernels against their "
+                         "plain versions), printing their records")
+    args = ap.parse_args(argv)
+    PARENT_WALK["src"] = args.parent_walk
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
@@ -664,6 +819,9 @@ def main() -> int:
           "sources", flush=True)
 
     records = phase_kernels("cuda")
+    if args.kernels_only:
+        print(json.dumps({"kernels": records}))
+        return 0
     # a first run loads the CUDA modules of the torch ops the drivers use
     # (lazily, on first launch): the cold run a user's first CLI call sees,
     # reported apart from the warm reruns

@@ -261,3 +261,82 @@ def test_fills_long_window_match_plain(cuda):
     want = banded.banded_local(qs, qlens, ts, tlens, lines)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _walk_equal(cuda, moves, offs, qs, qlens, tlens, tmax, max_ins):
+    """The walk kernel on the card against project_plain on the host: exact
+    equality of all four outputs; one counted launch."""
+    host = [torch.from_numpy(np.ascontiguousarray(x)) if isinstance(
+        x, np.ndarray) else x.cpu() for x in (moves, offs, qs, qlens, tlens)]
+    before = cuda_ext.LAUNCHES["traceback_walk"]
+    got = traceback.project(*[x.to(cuda) for x in host], tmax, max_ins)
+    assert cuda_ext.LAUNCHES["traceback_walk"] == before + 1
+    want = traceback.project_plain(*host, tmax, max_ins)
+    for name, g, w in zip(("aligned", "ins_cnt", "ins_b", "lead_ins"), got,
+                          want):
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("max_ins", [1, 4, 16])
+def test_walk_random_bytes_match_plain(max_ins, cuda):
+    """Move bytes no fill produces (choice 3, random E/F and high bits),
+    offsets that are non-monotone or put the lanes out of [0, 127], lengths
+    0, at the padded widths, negative and beyond them; through the bulk
+    copy (qmax 256) and the plain loads (qmax 203)."""
+    for seed, qmax, tmax in ((5, 256, 320), (6, 203, 251)):
+        cases = synth.walk_cases(np.random.default_rng(seed), qmax, tmax)
+        _walk_equal(cuda, *cases, tmax, max_ins)
+
+
+def test_walk_edge_batch_matches_plain(cuda):
+    """The fill's moves of the tie cases (qlen 0, 1 and == qmax, tlen < 128,
+    a clipped band) and of a >4096-row window at an odd qmax."""
+    qs, qlens, ts, tlens, _ = (torch.from_numpy(x) for x in
+                               synth.fill_tie_cases(np.random.default_rng(31)))
+    _, mv, of = banded.banded_global_moves(qs, qlens, ts, tlens)
+    _walk_equal(cuda, mv, of, qs, qlens, tlens, ts.shape[1], 4)
+    rng = np.random.default_rng(9)
+    t = rng.integers(0, 4, 4500).astype(np.uint8)
+    q = synth.mutate(rng, t, 0.02, 0.05, 0.05)
+    qmax, tmax = len(q) + 3, 4733
+    qs = torch.full((2, qmax), 5, dtype=torch.uint8)
+    ts = torch.full((2, tmax), 5, dtype=torch.uint8)
+    qs[0, :len(q)] = torch.from_numpy(q)
+    qs[1, :300] = torch.from_numpy(q[1000:1300])
+    ts[:, :len(t)] = torch.from_numpy(t)
+    qlens = torch.tensor([len(q), 300], dtype=torch.int32)
+    tlens = torch.full((2,), len(t), dtype=torch.int32)
+    _, mv, of = banded_cuda.batched_align_global_moves(
+        *[x.to(cuda) for x in (qs, qlens, ts, tlens)])
+    _walk_equal(cuda, mv, of, qs, qlens, tlens, tmax, 4)
+
+
+def test_walk_more_passes_than_sms(cuda):
+    """R = 200 passes in one launch (more blocks than the card's 132 SMs):
+    the fill's moves of noisy passes, and random bytes."""
+    rng = np.random.default_rng(10)
+    t, qs, qlens = _passes(rng, 200, 450, 512)
+    tmax = 640
+    ts = torch.from_numpy(np.pad(t, (0, tmax - len(t)), constant_values=5)
+                          )[None].expand(200, tmax).contiguous()
+    tlens = torch.full((200,), len(t), dtype=torch.int32)
+    _, mv, of = banded_cuda.batched_align_global_moves(
+        torch.from_numpy(qs).to(cuda), torch.from_numpy(qlens).to(cuda),
+        ts.to(cuda), tlens.to(cuda))
+    _walk_equal(cuda, mv, of, qs, qlens, tlens, tmax, 4)
+    cases = synth.walk_cases(rng, 512, tmax, n=200)
+    _walk_equal(cuda, *cases, tmax, 4)
+
+
+@pytest.mark.parametrize("ring", [(32, 2, 96), (32, 8, 128), (64, 4, 96),
+                                  (64, 8, 96)])
+def test_walk_ring_choices_match_plain(ring, cuda):
+    """Each ring the launch may choose (rows per stage, stages, threads)
+    on the random-bytes corpus; 64 rows on 8 stages needs more than 48 KB
+    of shared memory."""
+    cases = synth.walk_cases(np.random.default_rng(11), 256, 320)
+    host = [torch.from_numpy(x) for x in cases]
+    got = traceback.launch_variant(*[x.to(cuda) for x in host], 320, 4, *ring)
+    want = traceback.project_plain(*host, 320, 4)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), ring

@@ -38,17 +38,23 @@ def _corpus(rng):
     return qs, qlens, ts, len(t)
 
 
-def test_walk_matches_reference_projector():
-    rng = np.random.default_rng(23)
-    qs, qlens, ts, tlen = _corpus(rng)
+def _jax_moves(qs, qlens, ts, tlen):
+    """The JAX global fill's move bytes and offsets, as numpy arrays."""
     fill = jbanded.make_batched("global", JaxParams(), with_moves=True,
                                 with_stats=False)
     _, moves, offs = fill(qs, qlens, ts, np.full(len(qs), tlen, np.int32))
+    return np.array(moves), np.array(offs)
+
+
+def test_walk_matches_reference_projector():
+    rng = np.random.default_rng(23)
+    qs, qlens, ts, tlen = _corpus(rng)
+    moves, offs = _jax_moves(qs, qlens, ts, tlen)
     proj = jax.jit(jax.vmap(jtraceback.make_projector_reference(TMAX, R),
                             in_axes=(0, 0, 0, 0, None)))
     want = proj(moves, offs, qs, qlens, np.int32(tlen))
     got = traceback.project(
-        torch.from_numpy(np.array(moves)), torch.from_numpy(np.array(offs)),
+        torch.from_numpy(moves), torch.from_numpy(offs),
         torch.from_numpy(qs), torch.from_numpy(qlens),
         torch.full((len(qs),), tlen, dtype=torch.int32), TMAX, R)
     names = ("aligned", "ins_cnt", "ins_b", "lead_ins")
