@@ -22,6 +22,13 @@ band offset and ``d`` its advance over the previous row:
 * the final score is column tlen's H, in lane tlen & (B-1), masked by
   reachability (0 <= tlen - OFF < B).
 
+The kernel (csrc/banded_rotband.cu) runs one warp per problem: its lane L
+keeps the H and E of lanes k = 4L..4L+3 above in registers, where they
+never move; F is an in-lane prefix in krel order plus a shuffle scan of the
+lane totals in band order; the template word and the move row change
+layout with two shuffles and one byte permute each, the move row stored as
+one coalesced 128-byte row.
+
 ``batched_align_global_moves`` takes the plain version for CPU tensors,
 launches the kernel for CUDA tensors and raises for any other device.
 """

@@ -340,3 +340,64 @@ def walk_cases(rng, qmax: int = 256, tmax: int = 320, n: int = 24):
             else:
                 offs[k] = rng.integers(-300, tmax + 300, qmax)
     return moves, offs, qs, qlens, tlens
+
+
+def rotband_cases(rng, qmax: int = 384, tmax: int = 576):
+    """A batch for the rotating-band global fill whose band offsets walk
+    through every (offset mod 4, advance d in 0..4) pair and around the
+    ring of 128 residues several times: queries that follow their template
+    end to end at slopes tlen / qlen from about 0.4 to 4.6 (the band
+    advances 0-1, 1-2, 2-3, 3-4 or 4 columns a row, with the odd steps
+    moving it across the four residues of a lane), templates up to tmax
+    bases; tlen < 128 (the band never moves); qlen 0, 1 and == qmax; bands
+    clipped at tcap for about 190 rows, at tcap mod 4 = 0..3; and
+    homopolymer and repeat pairs, where ties decide.  Returns (qs, qlens,
+    ts, tlens) as numpy arrays: uint8 (n, qmax) and (n, tmax) padded with
+    5, int32 (n,)."""
+    def seq(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def along(t, qlen):
+        """qlen bases that follow t end to end: t's bases at sorted
+        positions (deletions) or t with random bases inserted, then 2%
+        substitutions."""
+        tl = len(t)
+        if qlen <= tl:
+            q = t[np.sort(rng.choice(tl, qlen, replace=False))].copy()
+        else:
+            ins = np.zeros(qlen, bool)
+            ins[rng.choice(qlen, qlen - tl, replace=False)] = True
+            q = np.empty(qlen, np.uint8)
+            q[~ins] = t
+            q[ins] = seq(int(ins.sum()))
+        sub = rng.random(qlen) < 0.02
+        q[sub] = seq(int(sub.sum()))
+        return q
+
+    cases = []
+    for slope in (0.45, 0.75, 1.3, 1.7, 2.3, 2.7, 3.3, 3.7, 4.6):
+        ql = min(qmax, int(tmax / slope))
+        t = seq(min(tmax, int(round(slope * ql))))
+        cases.append((along(t, ql), t))
+    for tl in (129, 130, 131, 132):              # clipped at tcap = tl - 127
+        t = seq(tl)
+        cases.append((along(t, qmax), t))
+    t = seq(300)
+    cases += [
+        (along(t[:100], 200), t[:100]),                    # tlen < 128
+        (along(t[:120], 60), t[:120]),
+        (np.zeros(0, np.uint8), t),                        # qlen 0
+        (t[:1], t),                                        # qlen 1
+        (np.concatenate([along(t, 280), seq(qmax)])[:qmax], t),  # == qmax
+        (np.zeros(200, np.uint8), np.zeros(tmax, np.uint8)),     # homopolymer
+        (np.tile(np.array([0, 1], np.uint8), 150),
+         np.tile(np.array([0, 1], np.uint8), 260)),        # repeats
+    ]
+    qs = np.full((len(cases), qmax), 5, np.uint8)
+    ts = np.full((len(cases), tmax), 5, np.uint8)
+    for k, (q, t) in enumerate(cases):
+        qs[k, :len(q)] = q[:qmax]
+        ts[k, :len(t)] = t[:tmax]
+    qlens = np.array([min(len(q), qmax) for q, _ in cases], np.int32)
+    tlens = np.array([min(len(t), tmax) for _, t in cases], np.int32)
+    return qs, qlens, ts, tlens

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ccsx_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--parent-walk SRC] [--kernels-only]
+    python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
+                          [--kernels-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -16,14 +17,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    body with unpacked statistics); traceback walk: on the global fill's
    output, the edge batch's and the tie cases', random move bytes with
    lanes out of the band and edge lengths at max_ins 1, 4 and 16
-   (``synth.walk_cases``), and R=200 passes; rotating-band fill: a packed slab of 128 rows over 4 holes'
-   templates, qmax 2048, tmax 2560, also against the band-local kernel on
-   the same inputs, plus the edge batch) — exact equality, all are
-   integers.  The two fills' launch choice (W = 1, 2, 4 problems per block)
-   is timed once at P=32, R=128 and the local table's shape, the walk's
-   ring choices (rows per stage, stages, threads) at P=32, the walk's
-   longest pass alone (its ns per row step), and, with ``--parent-walk``,
-   the parent commit's walk against this one in turns;
+   (``synth.walk_cases``), and R=200 passes; rotating-band fill: a packed
+   slab of 128 rows over 4 holes' templates, qmax 2048, tmax 2560, also
+   against the band-local kernel on the same inputs, plus the edge batch,
+   the tie cases and ``synth.rotband_cases`` (band offsets through every
+   (OFF % 4, d) pair)) — exact equality, all are integers.  The two fills'
+   launch choice (W = 1, 2, 4 problems per block) is timed once at P=32,
+   R=128 and the local table's shape, the walk's ring choices (rows per
+   stage, stages, threads) at P=32, the walk's longest pass alone (its ns
+   per row step), the rotating-band fill's ns a row (the slab's time over
+   its longest query), and, with ``--parent-walk`` and
+   ``--parent-rotband``, the parent commit's walk and rotating-band fill
+   against this one's in turns;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
    through the port's CLI on the card in three arms — the default (the
    batched packed driver), ``--banded-impl rotband`` and ``--batch off`` —
@@ -72,13 +77,15 @@ SCALE64_BYTES = 188359
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations of each kernel, tallied from its body in the source
-# notes of csrc/banded_fill.cu and csrc/traceback_walk.cu: for the fills,
-# per query row once (offset step, loop), per lane of the row's warp and
-# per band cell; for the walk per step plus per move kind.  The
-# rotating-band fill computes the same function as the band-local one, so
-# both are bound by the smallest tally of any body that computes it, the
-# band-local kernel's (csrc/banded_rotband.cu notes its own larger count)
+# notes of csrc/banded_fill.cu, csrc/banded_rotband.cu and
+# csrc/traceback_walk.cu: for the fills, per query row once (offset step,
+# loop), per lane of the row's warp and per band cell; for the walk per
+# step plus per move kind.  The rotating-band fill computes the same
+# function as the band-local one, so both are bound by the smallest tally
+# of any body that computes it (global_fill_ops): the band-local kernel's,
+# 6,345 a row against the rotating-band warp body's 8,214
 OPS_GLOBAL = dict(row=9, lane=70, cell=32)
+OPS_ROTBAND = dict(row=22, lane=80, cell=44)
 OPS_LOCAL = dict(row=9, lane=58, cell=57)
 # the walk: the first design's cell walk, per cell step plus per move kind,
 # and the row chain of csrc/traceback_walk.cu, per step that takes one row
@@ -97,9 +104,10 @@ WARPS = (1, 2, 4)
 # the walk's ring choices: rows per stage, stages, threads per block
 WALK_RINGS = ((32, 2, 96), (32, 4, 96), (32, 8, 96), (64, 4, 96),
               (64, 8, 96), (32, 4, 128))
-# --parent-walk SRC: a copy of the parent commit's csrc/traceback_walk.cu,
-# timed against this one (never part of the checkout)
-PARENT_WALK: dict = {}
+# --parent-walk SRC / --parent-rotband SRC: copies of the parent commit's
+# csrc/traceback_walk.cu and csrc/banded_rotband.cu, timed against this
+# checkout's kernels (never part of the checkout)
+PARENT: dict = {}
 
 SOURCES = {
     "banded_global": ("ccsx_tpu_torch/csrc/banded_fill.cu",
@@ -149,6 +157,12 @@ def fill_ops(rows: int, tally: dict) -> int:
     """Operations of ``rows`` query rows of a fill: per row, per lane of
     its warp (32) and per band cell (128)."""
     return rows * (tally["row"] + 32 * tally["lane"] + 128 * tally["cell"])
+
+
+def global_fill_ops(rows: int) -> int:
+    """The global function's operations: the smallest tally of the two
+    bodies that compute it."""
+    return min(fill_ops(rows, OPS_GLOBAL), fill_ops(rows, OPS_ROTBAND))
 
 
 def _pad(x, n, fill=5):
@@ -303,7 +317,7 @@ def phase_kernels(device, sizes=None):
                              f"(max abs err {err})")
     rows = int(qlens.sum())
     nbytes = qs.size + t.size + 8 * P + P * sizes["qmax"] * (128 + 4) + 4 * P
-    b_ms, b_by = bound_ms(nbytes, fill_ops(rows, OPS_GLOBAL))
+    b_ms, b_by = bound_ms(nbytes, global_fill_ops(rows))
     records["banded_global"] = dict(
         max_abs_err=err, mismatches=0,
         ms=time_ms(run_kernel, sizes["reps"]),
@@ -329,40 +343,55 @@ def phase_kernels(device, sizes=None):
     def run_local_layout():
         return banded_cuda.batched_align_global_moves(sq, sql, sts, stl)
 
+    def compare_rot(args):
+        """The rotating-band kernel against its plain version and the
+        band-local kernel, moves compared in full (rows beyond qlen are
+        zero in all three)."""
+        out = banded_rotband.batched_align_global_moves(*args)
+        every_row = np.full(len(args[0]), args[0].shape[1])
+        return max(compare_global(out, banded_rotband.rotband_global_moves(
+                       *args), every_row),
+                   compare_global(out, banded_cuda.batched_align_global_moves(
+                       *args), every_row))
+
     t0 = time.perf_counter()
-    r_out = run_rot()
-    sql_np = sql.cpu().numpy()
-    err = max(compare_global(r_out, run_rot_plain(), sql_np),
-              compare_global(r_out, run_local_layout(), sql_np))
+    err = compare_rot((sq, sql, sts, stl))
+    # the edge batch, the tie cases, and band offsets through every
+    # (OFF % 4, d) pair with the ring wrapped several times
     if edges:
-        e_out = banded_rotband.batched_align_global_moves(*edges)
-        e_np = edges[1].cpu().numpy()
-        err = max(err, compare_global(
-            e_out, banded_rotband.rotband_global_moves(*edges), e_np),
-            compare_global(e_out, banded_cuda.batched_align_global_moves(
-                *edges), e_np))
+        err = max(err, compare_rot(edges))
+    err = max(err, compare_rot(ties[:4]), compare_rot(
+        [T(x) for x in synth.rotband_cases(np.random.default_rng(5))]))
     if err:
         raise AssertionError(f"rotating-band fill differs from its plain "
                              f"version or the band-local kernel (max abs err "
                              f"{err})")
     rows = int(sql.sum())
+    longest = int(sql.max())
     nbytes = (sq.numel() + sts.numel() + 8 * R
               + R * sizes["qmax"] * (128 + 4) + 4 * R)
-    b_ms, b_by = bound_ms(nbytes, fill_ops(rows, OPS_GLOBAL))
+    b_ms, b_by = bound_ms(nbytes, global_fill_ops(rows))
     records["banded_global"]["warps_ms"][f"R={R}"] = time_choices(
         dev, (sq, sql, sts, stl))
+    rot_ms = time_ms(run_rot, sizes["reps"])
+    local_ms = time_ms(run_local_layout, sizes["reps"])
     records["banded_rotband"] = dict(
-        max_abs_err=err, mismatches=0, ms=time_ms(run_rot, sizes["reps"]),
-        band_local_ms_same_inputs=time_ms(run_local_layout, sizes["reps"]),
+        max_abs_err=err, mismatches=0, ms=rot_ms,
+        band_local_ms_same_inputs=local_ms,
         plain_ms=time_ms(run_rot_plain, sizes["plain_reps"], warmup=0),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"R={R} rows of 4 holes, qmax={sizes['qmax']} "
-              f"tmax={sizes['tmax']} band=128")
+              f"tmax={sizes['tmax']} band=128",
+        longest_query_rows=longest, ns_per_row=rot_ms * 1e6 / longest,
+        band_local_ns_per_row=local_ms * 1e6 / longest,
+        parent_ms=time_parent_rotband(dev, (sq, sql, sts, stl), run_rot,
+                                      sizes["reps"]))
     print(f"[chip_smoke] rotating-band fill: 0 mismatches vs plain and vs "
-          f"the band-local kernel ({time.perf_counter() - t0:.1f}s incl. "
-          f"plain); {records['banded_rotband']['ms']:.4f} ms vs band-local "
-          f"{records['banded_rotband']['band_local_ms_same_inputs']:.4f} ms "
-          f"at R={R}", flush=True)
+          f"the band-local kernel, on the edge batch, the tie cases and the "
+          f"rotband cases ({time.perf_counter() - t0:.1f}s incl. plain); "
+          f"{rot_ms:.4f} ms vs band-local {local_ms:.4f} ms at R={R}, "
+          f"{rot_ms * 1e6 / longest:.1f} vs {local_ms * 1e6 / longest:.1f} "
+          f"ns a row of the longest query ({longest} rows)", flush=True)
 
     # ---- traceback walk on the global fill's output ----
     _, moves, offs = k_out
@@ -582,13 +611,10 @@ def time_parent_walk(dev, args, tmax, run_walk, reps):
 
     from ccsx_tpu_torch.ops import cuda_ext
 
-    src = PARENT_WALK.get("src")
+    src = PARENT.get("walk")
     if not src or dev.type != "cuda":
         return None
-    so = os.path.join(WORK, "parent_walk.so")
-    subprocess.run([cuda_ext._nvcc(), *cuda_ext.NVCC_FLAGS, "-o", so, src],
-                   check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(build_parent(src, "parent_walk.so"))
     P_, I_ = ctypes.c_void_p, ctypes.c_int
     lib.ccsx_traceback_walk.argtypes = [P_, P_, P_, I_, P_, P_, I_, I_, P_,
                                         P_, P_, P_, I_, P_]
@@ -615,6 +641,69 @@ def time_parent_walk(dev, args, tmax, run_walk, reps):
                                         run_parent)]
     print("[chip_smoke]   walk, parent / new / new / parent: "
           + " / ".join(f"{t:.4f}" for t in times) + " ms", flush=True)
+    return {"order": "parent, new, new, parent", "ms": times}
+
+
+def build_parent(src, name):
+    """A parent commit's kernel source, built as the checkout's are, into
+    WORK/name; returns the library's path."""
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    so = os.path.join(WORK, name)
+    subprocess.run([cuda_ext._nvcc(), *cuda_ext.NVCC_FLAGS, "-o", so, src],
+                   check=True, capture_output=True, timeout=600)
+    return so
+
+
+def time_parent_rotband(dev, args, run_rot, reps):
+    """Each source named by ``--parent-rotband`` (the parent commit's
+    rotating-band fill, or any earlier version) against this one on the
+    same inputs, in turns (parent, new, new, parent): {source: times}, or
+    None without one.  Their outputs must equal this kernel's."""
+    if not PARENT.get("rotband") or dev.type != "cuda":
+        return None
+    return {src: time_one_parent_rotband(dev, args, run_rot, reps, src, k)
+            for k, src in enumerate(PARENT["rotband"])}
+
+
+def time_one_parent_rotband(dev, args, run_rot, reps, src, k):
+    import ctypes
+
+    import torch
+
+    from ccsx_tpu_torch.config import AlignParams
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    lib = ctypes.CDLL(build_parent(src, f"parent_rotband{k}.so"))
+    P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ccsx_banded_rotband.argtypes = [P_, I_, P_, P_, L_, I_, P_, I_, I_,
+                                        I_, I_, P_, P_, P_, I_, P_]
+    qs, qlens, ts, tlens = args
+    n, qmax = qs.shape
+    p = AlignParams()
+    out = (torch.empty((n,), dtype=torch.int32, device=dev),
+           torch.empty((n, qmax, 128), dtype=torch.uint8, device=dev),
+           torch.empty((n, qmax), dtype=torch.int32, device=dev))
+
+    def run_parent():
+        rc = lib.ccsx_banded_rotband(
+            qs.data_ptr(), qmax, qlens.data_ptr(), ts.data_ptr(),
+            ts.stride(0), ts.shape[1], tlens.data_ptr(), p.match, p.mismatch,
+            p.gap_open, p.gap_extend, out[1].data_ptr(), out[2].data_ptr(),
+            out[0].data_ptr(), n, cuda_ext.stream_ptr(dev))
+        if rc:
+            raise AssertionError(f"parent rotband launch failed ({rc})")
+
+    run_parent()
+    for a, b in zip(out, run_rot()):
+        if not torch.equal(a, b):
+            raise AssertionError("the parent's rotating-band fill and this "
+                                 "one differ")
+    times = [time_ms(f, reps) for f in (run_parent, run_rot, run_rot,
+                                        run_parent)]
+    print(f"[chip_smoke]   rotating-band fill, parent ({src}) / new / new / "
+          "parent: " + " / ".join(f"{t:.4f}" for t in times) + " ms",
+          flush=True)
     return {"order": "parent, new, new, parent", "ms": times}
 
 
@@ -781,11 +870,16 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-walk", metavar="SRC",
                     help="a copy of the parent commit's traceback_walk.cu, "
                          "timed against this walk in phase 3")
+    ap.add_argument("--parent-rotband", metavar="SRC", nargs="+",
+                    help="a copy of the parent commit's banded_rotband.cu "
+                         "(or of any earlier version; several are timed one "
+                         "after another), timed against this rotating-band "
+                         "fill in phase 3")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (the kernels against their "
                          "plain versions), printing their records")
     args = ap.parse_args(argv)
-    PARENT_WALK["src"] = args.parent_walk
+    PARENT.update(walk=args.parent_walk, rotband=args.parent_rotband or ())
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)

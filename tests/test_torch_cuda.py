@@ -122,6 +122,64 @@ def test_rotband_fill_matches_plain_and_band_local_kernel(cuda):
         assert torch.equal(g, b)
 
 
+def _rot_equal(cuda, qs, qlens, ts, tlens):
+    """The rotating-band kernel on the card against its plain version on
+    the host and the band-local kernel on the card: scores, offsets and
+    every move byte (rows beyond qlen are zero in all three); one counted
+    launch."""
+    host = [torch.from_numpy(np.ascontiguousarray(x)) if isinstance(
+        x, np.ndarray) else x for x in (qs, qlens, ts, tlens)]
+    dev = [x.to(cuda) for x in host]
+    if host[2].stride(0) == 0:               # keep a broadcast template so
+        dev[2] = host[2][:1].to(cuda).expand(host[2].shape)
+    before = cuda_ext.LAUNCHES["banded_rotband"]
+    got = banded_rotband.batched_align_global_moves(*dev)
+    assert cuda_ext.LAUNCHES["banded_rotband"] == before + 1
+    plain = banded_rotband.rotband_global_moves(*host)
+    local = banded_cuda.batched_align_global_moves(*dev)
+    for name, g, p, b in zip(("score", "moves", "offsets"), got, plain,
+                             local):
+        assert torch.equal(g.cpu(), p), name
+        assert torch.equal(g, b), name
+
+
+@pytest.mark.parametrize("corpus", ["ties", "rotband"])
+def test_rotband_fill_corpora_match_plain_and_band_local_kernel(corpus, cuda):
+    """The tie cases (homopolymers, repeats, qlen 0, 1 and == qmax, tlen <
+    128, a band clipped at tcap) and ``synth.rotband_cases`` (band offsets
+    through every (OFF % 4, d) pair, the ring wrapped up to three times,
+    bands clipped at tcap for about 190 rows)."""
+    if corpus == "ties":
+        cases = synth.fill_tie_cases(np.random.default_rng(31))[:4]
+    else:
+        cases = synth.rotband_cases(np.random.default_rng(5))
+    _rot_equal(cuda, *cases)
+
+
+def test_rotband_fill_long_window_many_problems_broadcast(cuda):
+    """A final-flush-sized window (more than 4096 query rows, the template
+    a row of an odd-width buffer), R = 200 problems in one launch (more
+    blocks than the card's 132 SMs), and one template broadcast over the
+    batch (stride 0, as the per-hole round passes it)."""
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, 4, 4500).astype(np.uint8)
+    q = synth.mutate(rng, t, 0.02, 0.05, 0.05)
+    qmax, tmax = len(q) + 3, 4733
+    qs = torch.full((2, qmax), 5, dtype=torch.uint8)
+    ts = torch.full((2, tmax), 5, dtype=torch.uint8)
+    qs[0, :len(q)] = torch.from_numpy(q)
+    qs[1, :300] = torch.from_numpy(q[1000:1300])
+    ts[:, :len(t)] = torch.from_numpy(t)
+    _rot_equal(cuda, qs, torch.tensor([len(q), 300], dtype=torch.int32), ts,
+               torch.full((2,), len(t), dtype=torch.int32))
+    _rot_equal(cuda, *_slab_inputs(rng, 200, 512, 768, 7))
+    t, qs, qlens = _passes(rng, 9, 600, 768)
+    tb = torch.from_numpy(np.pad(t, (0, 768 - len(t)), constant_values=5))
+    _rot_equal(cuda, torch.from_numpy(qs), torch.from_numpy(qlens),
+               tb[None].expand(len(qs), 768),
+               torch.full((len(qs),), len(t), dtype=torch.int32))
+
+
 def test_packed_refine_step_on_card_matches_cpu(cuda):
     """One packed refine step (fill -> walk -> segment vote -> on-device
     materialize, iters 2) on the card against the same step on the CPU,

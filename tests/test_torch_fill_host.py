@@ -4,7 +4,10 @@ against the plain fills.
 csrc/banded_fill.cu is compiled here with g++ against a small header that
 stands in for the CUDA builtins it uses: each warp runs as 32 threads, a
 warp shuffle exchanges values through a slot array between two barrier
-phases, and a launch runs its blocks' warps one after another.  The kernel
+phases, and a launch runs its blocks' warps one after another.  The header
+(``SHIM``) also has the byte permute and clamped funnel shift that
+csrc/banded_rotband.cu uses: tests/test_torch_rotband_host.py builds that
+source with it.  The kernel
 bodies are the card's own source, so their lane arithmetic, shuffles, tie
 rules, offsets and packing are checked on the CPU, bit for bit against
 ops/banded.py, before any card run; only timing and the compiler for the
@@ -51,6 +54,16 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned sh) {
   return (uint32_t)(((((uint64_t)hi) << 32) | lo) >> (sh & 31));
+}
+inline uint32_t __funnelshift_rc(uint32_t lo, uint32_t hi, unsigned sh) {
+  return (uint32_t)(((((uint64_t)hi) << 32) | lo) >> (sh < 32 ? sh : 32));
+}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (((uint64_t)y) << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
 }
 inline uint32_t __vcmpeq4(uint32_t a, uint32_t b) {
   uint32_t r = 0;
