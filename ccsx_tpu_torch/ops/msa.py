@@ -1,8 +1,9 @@
 """Star-MSA column voting: consensus call over stacked projections.
 
 The vote is a reduction over the pass axis in plain tensor ops, on whatever
-device the projections live; the packed slabs of the batched driver vote by
-segment id (``make_segment_voter``).  ``emit_insertions`` and
+device the projections live: ``vote`` takes one hole's (P, T) block or a
+bucketed batch's (Z, P, T) one, and the packed slabs of the batched driver
+vote by segment id (``make_segment_voter``).  ``emit_insertions`` and
 ``materialize`` are the host (NumPy) spec; ``emit_insertions_t`` and
 ``make_materializer`` are their tensor twins, which keep the batched
 refine loop's drafts on the device.
@@ -19,19 +20,24 @@ PAD = 5
 
 def vote(aligned: torch.Tensor, ins_cnt: torch.Tensor, ins_b: torch.Tensor,
          row_mask: torch.Tensor, max_ins: int = 4):
-    """Column vote.  Shapes: aligned (P, T) uint8, ins_cnt (P, T) int32,
-    ins_b (P, T, R) uint8, row_mask (P,) bool.  Returns:
-      cons      (T,) uint8  — 0-3 base, 4 gap (column dropped)
-      ins_base  (T, R) uint8 — majority inserted base per slot/rank
-      ins_votes (T, R) int32 — passes inserting at least r+1 bases at the slot
-      ncov      (T,) int32  — covering passes per column
-      match     (P, T) bool — pass agrees with the consensus at the column
-      nwin      (T,) int32  — passes voting the winning cell
-    Ties go to the lowest code (torch.argmax returns the first maximum).
+    """Column vote over the pass axis, for one hole or a batch of them (any
+    leading axes, the counterpart of the JAX package's
+    ``jax.vmap(make_voter(max_ins))``).  Shapes: aligned (..., P, T) uint8,
+    ins_cnt (..., P, T) int32, ins_b (..., P, T, R) uint8, row_mask (..., P)
+    bool.  Returns:
+      cons      (..., T) uint8  — 0-3 base, 4 gap (column dropped)
+      ins_base  (..., T, R) uint8 — majority inserted base per slot/rank
+      ins_votes (..., T, R) int32 — passes inserting at least r+1 bases
+      ncov      (..., T) int32  — covering passes per column
+      match     (..., P, T) bool — pass agrees with the consensus at the column
+      nwin      (..., T) int32  — passes voting the winning cell
+    Every count is an exact int32 sum over the hole's real rows (masked pass
+    rows count nothing); ties go to the lowest code (torch.argmax returns
+    the first maximum).
     """
-    mask = row_mask[:, None]
+    mask = row_mask[..., None]
     cnts = torch.stack(
-        [((aligned == c) & mask).sum(0, dtype=torch.int32) for c in range(5)])
+        [((aligned == c) & mask).sum(-2, dtype=torch.int32) for c in range(5)])
     ncov = cnts.sum(0, dtype=torch.int32)
     nwin = cnts.max(0).values
     cons = torch.argmax(cnts, dim=0).to(torch.uint8)
@@ -40,13 +46,14 @@ def vote(aligned: torch.Tensor, ins_cnt: torch.Tensor, ins_b: torch.Tensor,
     bases, votes = [], []
     for r in range(max_ins):
         has = mask & (ins_cnt > r)
-        votes.append(has.sum(0, dtype=torch.int32))
-        bc = torch.stack([((ins_b[:, :, r] == c) & has).sum(0, dtype=torch.int32)
+        votes.append(has.sum(-2, dtype=torch.int32))
+        bc = torch.stack([((ins_b[..., r] == c) & has).sum(-2,
+                                                           dtype=torch.int32)
                           for c in range(4)])
         bases.append(torch.argmax(bc, dim=0).to(torch.uint8))
-    ins_base = torch.stack(bases, dim=1)
-    ins_votes = torch.stack(votes, dim=1)
-    match = (aligned == cons[None, :]) & mask
+    ins_base = torch.stack(bases, dim=-1)
+    ins_votes = torch.stack(votes, dim=-1)
+    match = (aligned == cons[..., None, :]) & mask
     return cons, ins_base, ins_votes, ncov, match, nwin
 
 

@@ -1,4 +1,4 @@
-"""The batched packed driver: many holes per device step.
+"""The batched driver: many holes per device step.
 
 The per-hole driver (pipeline/run.py) runs one star-MSA round of one hole
 at a time, so a round of at most 32 passes fills at most 32 of the card's
@@ -9,26 +9,31 @@ holes and serves their pending requests together:
                     │ yields PairRequest / PairBatch (the strand walk)
                     │ or RefineRequest (one window's refinement)
                     ▼
-  pair sweep: seed on the host, group by padded (qmax, tmax), ONE batched
-  local fill per group (PairExecutor)
-  refine sweep: group by (qmax, tmax, iters), flatten each hole's passes
-  into (hole, pass) ROWS and pack rows of many holes into (R, qmax) slabs
-  first-fit-decreasing by hole (pipeline/pack.py); a row->hole segment
-  vector rides along (BatchExecutor)
+  pair sweep (PairExecutor): screen long pairs on the device, seed long
+  templates on the device and the rest on the host, filter on the seed
+  statistics, then ONE batched local fill per padded (qmax, tmax) group
+  refine sweep (BatchExecutor), packed (the default): group by (qmax,
+  tmax, iters), flatten each hole's passes into (hole, pass) ROWS and pack
+  rows of many holes into (R, qmax) slabs first-fit-decreasing by hole
+  (pipeline/pack.py), a row->hole segment vector riding along; or bucketed
+  (--pass-buckets): group by (P, qmax, tmax, iters) and stack the holes
+  as (Z, P) with their pad passes
                     ▼
-  ONE device step per slab (_refine_core_packed): the speculative rounds
-  and the final round (global fill -> walk -> segment vote -> draft
-  re-materialization) loop with the drafts on the device, then the
-  breakpoint scan; one transfer in and one out per slab
+  ONE device step per slab or group (_refine_core_packed / _refine_core):
+  the speculative rounds and the final round (global fill -> walk -> vote
+  -> draft re-materialization) loop with the drafts on the device, then
+  the breakpoint scan; one transfer in and one out per step
                     ▼
   results routed back into each generator; finished holes go to the
   ordered writer in input order.
 
-This is the JAX package's pipeline/batch.py, single-device packed path
-(its ``pool is None`` inline-prep branch), with the same slab plan, the
-same per-hole freeze/fixpoint/overflow rules and so the same output bytes.
-JAX runs the refine loop as a device ``while_loop``; here it is a host loop
-of at most iters + 1 rounds that reads one bool per round.
+This is the JAX package's pipeline/batch.py, single-device path (its
+``pool is None`` inline-prep branch), with the same slab plan and groups,
+the same per-hole freeze/fixpoint/overflow rules and so the same output
+bytes.  JAX runs the refine loop as a device ``while_loop``; here it is a
+host loop of at most iters + 1 rounds that reads one bool per round.  The
+JAX package pads a bucketed group's Z to a power of two (_z_bucket) to
+bound its compiles; the port compiles nothing per shape and does not.
 
 Failures (classify_failure): a CUDA out-of-memory error bisects the slab by
 hole and retries the halves (capped depth, backoff); a kernel or card fault,
@@ -56,13 +61,13 @@ from ccsx_tpu_torch.consensus import prepare as prep_mod
 from ccsx_tpu_torch.consensus.align_host import HostAligner, MatchResult
 from ccsx_tpu_torch.consensus.hole import full_gen_for_zmw
 from ccsx_tpu_torch.consensus.star import (
-    RefineRequest, RefineResult, RoundResult, StarMsa, bucket_len, global_fill,
-    pad_to, refine_host)
+    RefineRequest, RefineResult, RoundRequest, RoundResult, StarMsa,
+    bucket_len, global_fill, pad_to, refine_host)
 from ccsx_tpu_torch.ops import banded, banded_cuda
 from ccsx_tpu_torch.ops import breakpoint as bp_mod
 from ccsx_tpu_torch.ops import cuda_ext
 from ccsx_tpu_torch.ops import encode as enc
-from ccsx_tpu_torch.ops import msa, seed, sketch, traceback
+from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
 from ccsx_tpu_torch.pipeline import pack as pack_mod
 
 
@@ -186,6 +191,66 @@ def _fused_tmax(tlen: int, quant: int) -> int:
 
 # ---- the packed refine step -----------------------------------------------
 
+def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
+                 rows: tuple, max_ins: int):
+    """The refinement loop both refine cores run, over H holes (slots).
+
+    ``one_round(draft, dlen)`` gives the 9 round outputs: five hole-shaped
+    (H, ...) and four row-shaped (``rows`` + ...: (R,) rows of a packed
+    slab, or (Z, P) of a bucketed group); ``row_fixed(fixed)`` maps the
+    holes' frozen flags onto those rows' leading axes.  A hole whose
+    speculative draft stops changing is frozen (re-rounds on a fixed draft
+    are no-ops) and keeps its LAST live round's outputs; a hole whose draft
+    would outgrow tmax is frozen and flagged (``ovf``) for an exact host
+    replay; the round at it == iters is the mandatory final round; holes
+    ``fixed`` at the start (no real rows) never change.  At most iters + 1
+    rounds, one bool read per round (whether every hole is frozen).
+    Returns (outs, dlen, ovf)."""
+    dev = draft.device
+    H, tmax = draft.shape
+
+    def z(*shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    outs = (z(H, tmax, dtype=torch.uint8),              # cons
+            z(H, tmax, max_ins, dtype=torch.uint8),     # ins_base
+            z(H, tmax, max_ins, dtype=torch.int32),     # ins_votes
+            z(H, tmax, dtype=torch.int32),              # ncov
+            z(H, tmax, dtype=torch.int32),              # nwin
+            z(*rows, tmax, dtype=torch.bool),           # match
+            z(*rows, tmax, dtype=torch.uint8),          # aligned
+            z(*rows, tmax, dtype=torch.int32),          # ins_cnt
+            z(*rows, dtype=torch.int32))                # lead_ins
+    ovf = torch.zeros(H, dtype=torch.bool, device=dev)
+    dlen = dlen.to(torch.int32)
+    it = 0
+    while True:
+        new = one_round(draft, dlen)
+        fr = row_fixed(fixed)
+        outs = tuple(
+            torch.where(f.view(f.shape + (1,) * (n.dim() - f.dim())), o, n)
+            for f, o, n in zip((fixed,) * 5 + (fr,) * 4, outs, new))
+        if it >= iters:
+            break          # the final round: no draft is consumed past it
+        cons, ins_base, ins_votes, ncov = outs[:4]
+        ins_out = msa.emit_insertions_t(ins_base, ins_votes, ncov, True)
+        nd, nl, o = mat(cons, ins_out, dlen)
+        # fixpoint: same length AND same padded cells == the host's
+        # np.array_equal on the exact-length drafts
+        now_fixed = (nl == dlen) & (nd == draft).all(dim=1)
+        o = ~fixed & o
+        grow = ~fixed & ~o & ~now_fixed
+        draft = torch.where(grow[:, None], nd, draft)
+        dlen = torch.where(grow, nl, dlen)
+        fixed = fixed | now_fixed | o
+        ovf = ovf | o
+        it += 1
+        if bool(fixed.all()):
+            break
+    return outs, dlen, ovf
+
+
+
 def _round_body_packed(params: AlignParams, max_ins: int, tmax: int,
                        nseg: int, impl: str = ""):
     """One star round over a packed slab: (R, qmax) rows of up to ``nseg``
@@ -212,75 +277,27 @@ def _round_body_packed(params: AlignParams, max_ins: int, tmax: int,
 def _refine_core_packed(params: AlignParams, max_ins: int, tmax: int,
                         iters: int, nseg: int, bp_consts: tuple,
                         impl: str = ""):
-    """The whole-window refinement loop over ONE packed slab.
+    """The whole-window refinement loop (_refine_loop) over ONE packed slab.
 
     core(qs (R, qmax) uint8, qlens (R,) int32, row_mask (R,) bool, seg (R,)
     int, ts (H, tmax) uint8, tlens (H,) int32) -> (cons, ins_base,
     ins_votes, ncov, nwin, bp, advance, dlen, ovf), H = nseg, as the JAX
-    package's ``_refine_core_packed`` returns them.
-
-    Per hole slot: a hole whose speculative draft stops changing is frozen
-    (re-rounds on a fixed draft are no-ops) and keeps its LAST live round's
-    outputs, hole-shaped ones by slot and row-shaped ones through the
-    segment vector; a hole whose draft would outgrow tmax is frozen and
-    flagged (``ovf``) for an exact host replay; the round at it == iters is
-    the mandatory final round.  Empty hole slots (no real rows) start
-    frozen.  The loop runs at most iters + 1 rounds and reads one bool per
-    round (whether every hole is frozen)."""
+    package's ``_refine_core_packed`` returns them.  A frozen hole keeps
+    its row-shaped outputs through the segment vector; empty hole slots
+    (no real rows) start frozen."""
     one_round = _round_body_packed(params, max_ins, tmax, nseg, impl)
     bp_advance = bp_mod.make_bp_advance_packed(tmax, nseg, *bp_consts)
     mat = msa.make_materializer(tmax, tmax, max_ins)
     H = nseg
 
     def core(qs, qlens, row_mask, seg, ts, tlens):
-        R = qs.shape[0]
-        dev = qs.device
         seg = seg.long()
-        nrows = torch.zeros(H, dtype=torch.int32, device=dev).index_add_(
-            0, seg, row_mask.to(torch.int32))
-        fixed = nrows == 0
-        ovf = torch.zeros(H, dtype=torch.bool, device=dev)
-
-        def z(*shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        outs = (z(H, tmax, dtype=torch.uint8),              # cons
-                z(H, tmax, max_ins, dtype=torch.uint8),     # ins_base
-                z(H, tmax, max_ins, dtype=torch.int32),     # ins_votes
-                z(H, tmax, dtype=torch.int32),              # ncov
-                z(H, tmax, dtype=torch.int32),              # nwin
-                z(R, tmax, dtype=torch.bool),               # match
-                z(R, tmax, dtype=torch.uint8),              # aligned
-                z(R, tmax, dtype=torch.int32),              # ins_cnt
-                z(R, dtype=torch.int32))                    # lead_ins
-        draft, dlen = ts, tlens.to(torch.int32)
-        it = 0
-        while True:
-            new = one_round(qs, qlens, row_mask, seg, draft, dlen)
-            fix_r = fixed.index_select(0, seg)
-            outs = tuple(
-                torch.where(fixed.view((H,) + (1,) * (n.dim() - 1)), o, n)
-                for o, n in zip(outs[:5], new[:5])
-            ) + tuple(
-                torch.where(fix_r.view((R,) + (1,) * (n.dim() - 1)), o, n)
-                for o, n in zip(outs[5:], new[5:]))
-            if it >= iters:
-                break          # the final round: no draft is consumed past it
-            cons, ins_base, ins_votes, ncov = outs[:4]
-            ins_out = msa.emit_insertions_t(ins_base, ins_votes, ncov, True)
-            nd, nl, o = mat(cons, ins_out, dlen)
-            # fixpoint: same length AND same padded cells == the host's
-            # np.array_equal on the exact-length drafts
-            now_fixed = (nl == dlen) & (nd == draft).all(dim=1)
-            o = ~fixed & o
-            grow = ~fixed & ~o & ~now_fixed
-            draft = torch.where(grow[:, None], nd, draft)
-            dlen = torch.where(grow, nl, dlen)
-            fixed = fixed | now_fixed | o
-            ovf = ovf | o
-            it += 1
-            if bool(fixed.all()):
-                break
+        nrows = torch.zeros(H, dtype=torch.int32, device=qs.device
+                            ).index_add_(0, seg, row_mask.to(torch.int32))
+        outs, dlen, ovf = _refine_loop(
+            lambda d, dl: one_round(qs, qlens, row_mask, seg, d, dl), mat,
+            iters, ts, tlens, nrows == 0, lambda f: f.index_select(0, seg),
+            (qs.shape[0],), max_ins)
         (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
          lead_ins) = outs
         bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
@@ -369,6 +386,187 @@ def _unpack_slab_refine(out: np.ndarray, max_ins: int, tmax: int, H: int,
     return cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen, ovf
 
 
+# ---- the bucketed (Z, P) steps (--pass-buckets, the A/B control) ----------
+
+def _round_body(params: AlignParams, max_ins: int, tmax: int,
+                impl: str = ""):
+    """One star round over a bucketed group: (Z, P, qmax) passes, each hole
+    padded to its pass bucket P (pad passes have qlen 0 and a False
+    row_mask), aligned to that hole's (Z, tmax) draft, walked, and voted
+    per hole.  The per-hole drafts are gathered into a contiguous (Z·P,
+    tmax) tensor (the kernels take one row stride), so each round is one
+    fill and one walk launch for the whole group.  Pad passes are filled
+    and walked like any row and count nothing in the vote."""
+    fill = global_fill(params, impl)
+
+    def body(qs, qlens, row_mask, draft, dlen):
+        Z, P, qmax = qs.shape
+        hole = torch.arange(Z, device=qs.device).repeat_interleave(P)
+        ts_r = draft.index_select(0, hole)          # (Z·P, tmax)
+        tl_r = dlen.to(torch.int32).index_select(0, hole)
+        q_r = qs.reshape(Z * P, qmax).contiguous()
+        ql_r = qlens.reshape(Z * P).to(torch.int32).contiguous()
+        _, moves, offs = fill(q_r, ql_r, ts_r, tl_r)
+        aligned, ins_cnt, ins_b, lead_ins = traceback.project(
+            moves, offs, q_r, ql_r, tl_r, tmax, max_ins)
+        aligned = aligned.view(Z, P, tmax)
+        ins_cnt = ins_cnt.view(Z, P, tmax)
+        ins_b = ins_b.view(Z, P, tmax, max_ins)
+        lead_ins = lead_ins.view(Z, P)
+        cons, ins_base, ins_votes, ncov, match, nwin = msa.vote(
+            aligned, ins_cnt, ins_b, row_mask, max_ins)
+        return (cons, ins_base, ins_votes, ncov, nwin, match, aligned,
+                ins_cnt, lead_ins)
+
+    return body
+
+
+def _round_core(params: AlignParams, max_ins: int, tmax: int,
+                bp_consts: tuple, impl: str = ""):
+    """core(qs (Z, P, qmax), qlens (Z, P), ts (Z, tmax), tlens (Z,),
+    row_mask (Z, P)) -> (cons, ins_base, ins_votes, ncov, nwin, bp,
+    advance): one round and the breakpoint scan, votes and coverage as
+    uint8 (bounded by the pass bucket)."""
+    body = _round_body(params, max_ins, tmax, impl)
+    bp_advance = bp_mod.make_bp_advance(tmax, *bp_consts)
+
+    def core(qs, qlens, ts, tlens, row_mask):
+        (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
+         lead_ins) = body(qs, qlens, row_mask, ts, tlens)
+        bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
+                                 row_mask, tlens)
+        return (cons, ins_base, ins_votes.to(torch.uint8),
+                ncov.to(torch.uint8), nwin.to(torch.uint8), bp, advance)
+
+    return core
+
+
+def _refine_core(params: AlignParams, max_ins: int, tmax: int, iters: int,
+                 bp_consts: tuple, impl: str = ""):
+    """A window's whole refinement loop (_refine_loop) over a bucketed
+    group, with the packed core's rules per hole; holes without a real pass
+    start frozen.
+
+    core(qs, qlens, ts, tlens, row_mask) (the shapes of _round_core) ->
+    (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen, ovf), as
+    the JAX package's ``_refine_step`` core returns them."""
+    one_round = _round_body(params, max_ins, tmax, impl)
+    bp_advance = bp_mod.make_bp_advance(tmax, *bp_consts)
+    mat = msa.make_materializer(tmax, tmax, max_ins)
+
+    def core(qs, qlens, ts, tlens, row_mask):
+        outs, dlen, ovf = _refine_loop(
+            lambda d, dl: one_round(qs, qlens, row_mask, d, dl), mat, iters,
+            ts, tlens, ~row_mask.any(dim=1), lambda f: f, qs.shape[:2],
+            max_ins)
+        (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
+         lead_ins) = outs
+        bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
+                                 row_mask, dlen)
+        return (cons, ins_base, ins_votes.to(torch.uint8),
+                ncov.to(torch.uint8), nwin.to(torch.uint8), bp, advance,
+                dlen, ovf)
+
+    return core
+
+
+def _pack_args(args, pin: bool = False) -> torch.Tensor:
+    """Host side of the bucketed transfer protocol: the 5 round/refine
+    inputs (qs (Z, P, qmax), qlens (Z, P), ts (Z, tmax), tlens (Z,),
+    row_mask (Z, P)) become ONE (Z, P·qmax + tmax + 4·(2P + 1)) uint8
+    buffer, a hole a row: its passes, its draft, then the int32 qlens,
+    tlen and row_mask as bytes (pinned when ``pin``, so it goes to the
+    card in one non-blocking copy)."""
+    qs, qlens, ts, tlens, row_mask = args
+    Z, P, qmax = qs.shape
+    tmax = ts.shape[1]
+    small = np.concatenate([np.asarray(qlens, np.int32),
+                            np.asarray(tlens, np.int32)[:, None],
+                            np.asarray(row_mask, np.int32)], axis=1)
+    buf_t = torch.empty((Z, P * qmax + tmax + 4 * (2 * P + 1)),
+                        dtype=torch.uint8, pin_memory=pin)
+    buf = buf_t.numpy()
+    buf[:, :P * qmax] = qs.reshape(Z, P * qmax)
+    buf[:, P * qmax:P * qmax + tmax] = ts
+    buf[:, P * qmax + tmax:] = small.view(np.uint8)
+    return buf_t
+
+
+def _unpack_args(buf: torch.Tensor, P: int, qmax: int, tmax: int):
+    """Device side of _pack_args: (qs, qlens, ts, tlens, row_mask)."""
+    Z = buf.shape[0]
+    qs = buf[:, :P * qmax].reshape(Z, P, qmax)
+    ts = buf[:, P * qmax:P * qmax + tmax]
+    small = buf[:, P * qmax + tmax:].contiguous().view(torch.int32)
+    return qs, small[:, :P], ts, small[:, P], small[:, P + 1:] != 0
+
+
+def _pack_out(hole_fields, ints) -> torch.Tensor:
+    """The step's ONE (Z, ...) uint8 output: the hole-shaped uint8 fields
+    flattened per hole, then the int32 columns as bytes."""
+    Z = hole_fields[0].shape[0]
+    small = torch.cat([x.reshape(Z, -1).to(torch.int32) for x in ints],
+                      dim=1).contiguous()
+    return torch.cat([x.reshape(Z, -1) for x in hole_fields]
+                     + [small.view(torch.uint8)], dim=1)
+
+
+def _round_step(params: AlignParams, max_ins: int, tmax: int,
+                bp_consts: tuple, pack: tuple, impl: str = ""):
+    """The bucketed single round at pack=(P, qmax): the _pack_args buffer
+    (on the device) in, one uint8 buffer out (_unpack_round splits it)."""
+    core = _round_core(params, max_ins, tmax, bp_consts, impl)
+    P, qmax = pack
+
+    def step(buf):
+        cons, ins_base, ins_votes, ncov, nwin, bp, advance = core(
+            *_unpack_args(buf, P, qmax, tmax))
+        return _pack_out((cons, ins_base, ins_votes, ncov, nwin),
+                         (bp, advance))
+
+    return step
+
+
+def _refine_step(params: AlignParams, max_ins: int, tmax: int, iters: int,
+                 bp_consts: tuple, pack: tuple, impl: str = ""):
+    """The bucketed refinement step (_refine_core) at pack=(P, qmax), as
+    _round_step; its output also carries dlen and ovf (_unpack_refine)."""
+    core = _refine_core(params, max_ins, tmax, iters, bp_consts, impl)
+    P, qmax = pack
+
+    def step(buf):
+        (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
+         ovf) = core(*_unpack_args(buf, P, qmax, tmax))
+        return _pack_out((cons, ins_base, ins_votes, ncov, nwin),
+                         (bp, advance, dlen, ovf))
+
+    return step
+
+
+def _unpack_round(out: np.ndarray, max_ins: int, tmax: int):
+    """Host-side split of a bucketed step's (Z, ...) output into (cons,
+    ins_base, ins_votes, ncov, nwin, bp, rest): rest holds the int32
+    columns after bp (advance, and for a refine step dlen and ovf)."""
+    Z = out.shape[0]
+    T, M = tmax, max_ins
+    cons = out[:, :T]
+    ins_base = out[:, T:T * (1 + M)].reshape(Z, T, M)
+    ins_votes = out[:, T * (1 + M):T * (1 + 2 * M)].reshape(Z, T, M)
+    ncov = out[:, T * (1 + 2 * M):T * (2 + 2 * M)]
+    nwin = out[:, T * (2 + 2 * M):T * (3 + 2 * M)]
+    small = np.ascontiguousarray(out[:, T * (3 + 2 * M):]).view(np.int32)
+    return cons, ins_base, ins_votes, ncov, nwin, small[:, 0], small[:, 1:]
+
+
+def _unpack_refine(out: np.ndarray, max_ins: int, tmax: int):
+    """_unpack_round for a refine step: the 9-tuple (cons, ins_base,
+    ins_votes, ncov, nwin, bp, advance, dlen, ovf)."""
+    cons, ins_base, ins_votes, ncov, nwin, bp, rest = _unpack_round(
+        out, max_ins, tmax)
+    return (cons, ins_base, ins_votes, ncov, nwin, bp, rest[:, :-2],
+            rest[:, -2], rest[:, -1] != 0)
+
+
 def _pair_fill_packed(params: AlignParams, qmax: int, tmax: int, device):
     """The batched local fill of the strand walk's pairs: one (N, qmax+tmax)
     uint8 and one (N, 6) int32 buffer (qlen, tlen, line) in, one (N, 7)
@@ -392,16 +590,27 @@ _REJECTED = (False, MatchResult(False, 0, 0, 0, 0, 0, 0, 0))
 
 class PairExecutor:
     """Batches the strand walk's PairRequests (strand_match pairs) across
-    holes: seeded on the host (ops/seed.py, with an LRU of template
-    indexes), filtered by the sketch rule on the seed statistics
-    (ops/sketch.py; it only rejects pairs whose acceptance would fail),
-    grouped by padded (qmax, tmax) and filled in ONE batched local-mode
-    kernel launch per group.
+    holes, in the JAX package's three stages:
 
-    The JAX package seeds templates of ``HOST_TWIN_MIN_T`` bases and more,
-    and screens pairs that long, in batched device steps that the port does
-    not have yet; here such pairs take the same host seeding as the rest
-    (the same statistics and rule) and are counted as ``pairs_host_twin``.
+    1. the device screen (sketch.screen_step, one batched step per padded
+       (qmax, tmax) group) for the pairs of at least ``screen_min_device``
+       bases that will not seed on the device; sketch.reject_reason drops
+       the hopeless ones.  The screen is advisory: a pair whose screen
+       failed on both rungs stays alive;
+    2. seeding of the survivors: on the device (seed_device.seed_step, one
+       step per group) for templates of at least ``seed_device_min_t``
+       bases, otherwise the cached host sort-join (ops/seed.py, with an
+       LRU of template indexes).  A pair whose seed failed on both rungs
+       quarantines its hole;
+    3. the filter rule on the seed statistics (sketch.reject_from_hit) for
+       every pair of at least SCREEN_MIN_QT bases not screened in stage 1,
+       then ONE batched local-mode fill launch per (qmax, tmax) group.
+
+    Each stage's groups go through the recovery ladder
+    (_run_groups_recovering) with its host rung: sketch.screen_host,
+    seed.seed_diagonal, HostAligner.strand_match.  Every rule only rejects
+    pairs whose acceptance would fail, and either seeding path gives the
+    same hit, so the output bytes do not depend on the routing.
 
     PairBatch entries (the walk's fwd+RC speculation) are evaluated in the
     same wave, every arm, and answered with the aligned list of (ok, rs)
@@ -412,20 +621,29 @@ class PairExecutor:
     # PairRequest.t_token): the walk pairs many passes against one template
     seed_cache_max = 128
 
-    # the JAX package's crossovers to its device seeder and device screen
-    # (cfg.seed_device_min_t and sketch.SPECULATE_MIN_QT, both 16384)
-    HOST_TWIN_MIN_T = sketch.SPECULATE_MIN_QT
-
     def __init__(self, params: AlignParams, quant: int = 512,
                  device="cuda", counts: Optional[dict] = None,
-                 prefilter: bool = True):
+                 prefilter: bool = True, seed_device_min_t: int = 16384):
         self.params = params
         self.quant = quant
         self.device = torch.device(device)
         self.counts = counts if counts is not None else {}
         self.prefilter = bool(prefilter)
+        self.seed_device_min_t = max(0, int(seed_device_min_t))
+        # the device screen's floor; below it the rules ride the seed
+        # statistics (stage 3).  An attribute so tests can drive the
+        # screen at small shapes
+        self.screen_min_device = sketch.SPECULATE_MIN_QT
         self._host_aligner = None
         self._seed_cache: "OrderedDict" = OrderedDict()
+
+    def _screens(self, pr) -> bool:
+        return (self.prefilter
+                and min(len(pr.q), len(pr.t)) >= self.screen_min_device)
+
+    def _seeds_on_device(self, pr) -> bool:
+        return (self.seed_device_min_t > 0
+                and len(pr.t) >= self.seed_device_min_t)
 
     @staticmethod
     def _flatten(pairs):
@@ -476,6 +694,92 @@ class PairExecutor:
             indexes[i] = indexes[need_owner[tok]]
         return indexes
 
+    def _groups(self, pairs, idxs) -> Dict[tuple, List[int]]:
+        groups: Dict[tuple, List[int]] = defaultdict(list)
+        for i in idxs:
+            groups[(bucket_len(len(pairs[i].q), self.quant),
+                    bucket_len(len(pairs[i].t), self.quant))].append(i)
+        return groups
+
+    def _pad_pair(self, pairs, idxs, key):
+        """The wire layout of the screen and seed steps, on the device:
+        (N, qmax+tmax) PAD-filled codes and (N, 2) int32 lengths (a padded
+        tail is inert: every k-mer window touching PAD is bad)."""
+        qmax, tmax = key
+        big = np.full((len(idxs), qmax + tmax), banded.PAD, np.uint8)
+        small = np.zeros((len(idxs), 2), np.int32)
+        for z, i in enumerate(idxs):
+            big[z, :qmax] = pad_to(pairs[i].q, qmax)
+            big[z, qmax:] = pad_to(pairs[i].t, tmax)
+            small[z] = len(pairs[i].q), len(pairs[i].t)
+        return (torch.from_numpy(big).to(self.device),
+                torch.from_numpy(small).to(self.device))
+
+    def _screen_wave(self, pairs, idxs, results) -> int:
+        """Stage 1: one batched screen per (qmax, tmax) group over idxs;
+        rejected pairs get their final (False, empty) result.  Returns the
+        number rejected."""
+        triples: List = [None] * len(pairs)
+
+        def dispatch(gidxs, key):
+            _bump(self.counts, screen_steps=1)
+            return sketch.screen_step(*key)(*self._pad_pair(pairs, gidxs,
+                                                            key))
+
+        def finish(gidxs, key, out):
+            out = out.cpu()
+            for z, i in enumerate(gidxs):
+                triples[i] = tuple(int(v) for v in out[z])
+
+        def host_one(i):
+            return sketch.screen_host(pairs[i].q, pairs[i].t)
+
+        _run_groups_recovering(self._groups(pairs, idxs), dispatch, finish,
+                               host_one, triples, self.counts)
+        rejected = 0
+        for i in idxs:
+            tr = triples[i]
+            if not isinstance(tr, tuple):
+                continue   # the screen failed for this pair: keep it alive
+            pr = pairs[i]
+            if sketch.reject_reason(*tr, len(pr.q), len(pr.t), pr.pct,
+                                    self.params.band):
+                results[i] = _REJECTED
+                rejected += 1
+        return rejected
+
+    def _seed_wave(self, pairs, idxs, hits, results) -> None:
+        """Stage 2's device half: one batched seed per (qmax, tmax) group;
+        rows fold back into ``hits`` as the SeedHit-or-None the host path
+        gives.  A pair whose seed failed on both rungs carries its
+        Exception into ``results`` (its hole is quarantined)."""
+        rows: List = [None] * len(pairs)
+
+        def dispatch(gidxs, key):
+            _bump(self.counts, seed_steps=1)
+            return seed_device.seed_step(*key)(*self._pad_pair(pairs, gidxs,
+                                                               key))
+
+        def finish(gidxs, key, out):
+            out = out.cpu()
+            for z, i in enumerate(gidxs):
+                rows[i] = [int(v) for v in out[z]]
+
+        def host_one(i):
+            hit = seed.seed_diagonal(pairs[i].q, pairs[i].t)
+            if hit is None:
+                return [0] * 8
+            return [1, hit.diag, hit.votes, *(int(v) for v in hit.line), 0]
+
+        _run_groups_recovering(self._groups(pairs, idxs), dispatch, finish,
+                               host_one, rows, self.counts)
+        for i in idxs:
+            r = rows[i]
+            if isinstance(r, Exception):
+                results[i] = r
+            elif r is not None:
+                hits[i] = seed_device.hit_from_row(r)
+
     def run(self, pairs):
         """Satisfy all pair requests; results align index-for-index —
         (ok, MatchResult) for a PairRequest, a list of them for a
@@ -487,36 +791,65 @@ class PairExecutor:
 
     def _run_flat(self, pairs):
         results: List = [None] * len(pairs)
-        groups: Dict[tuple, List[int]] = defaultdict(list)
         lines: Dict[int, np.ndarray] = {}
         band = self.params.band
 
-        # host seeding (the cached sort-join), then the filter rule on the
-        # seed statistics, then the banded local fill of every survivor
-        seed_idx = self._seed_indexes(pairs)
-        _bump(self.counts, pairs_host_twin=sum(
-            len(pr.t) >= self.HOST_TWIN_MIN_T for pr in pairs))
+        # stage 1: the device screen, only for long pairs that will not
+        # seed on the device (the seed's rows carry the same statistics,
+        # so stage 3 filters those for free)
+        screen_ids = [i for i, pr in enumerate(pairs)
+                      if self._screens(pr) and not self._seeds_on_device(pr)]
+        rejected = 0
+        if screen_ids:
+            rejected = self._screen_wave(pairs, screen_ids, results)
+
+        # stage 2: seeding for the survivors, on the device for long
+        # templates and by the cached host sort-join below that
+        hits: Dict[int, object] = {}
+        dev_ids = [i for i, pr in enumerate(pairs)
+                   if results[i] is None and self._seeds_on_device(pr)]
+        dev_set = set(dev_ids)
+        host_ids = [i for i in range(len(pairs))
+                    if results[i] is None and i not in dev_set]
+        seed_idx = self._seed_indexes([pairs[i] for i in host_ids])
+        for pos, i in enumerate(host_ids):
+            hits[i] = seed.seed_diagonal(pairs[i].q, pairs[i].t,
+                                         t_index=seed_idx.get(pos))
+        if dev_ids:
+            self._seed_wave(pairs, dev_ids, hits, results)
+
+        # stage 3: the filter rule on the seed statistics for every
+        # eligible pair not screened in stage 1, then the local fill
+        screen_set = set(screen_ids)
+        screened = len(screen_ids)
+        fill_ids = []
         for i, pr in enumerate(pairs):
-            hit = seed.seed_diagonal(pr.q, pr.t, t_index=seed_idx.get(i))
+            if results[i] is not None:
+                continue
+            hit = hits.get(i)
             if hit is None:
                 # no shared 13-mers: unalignable at >=60% identity
                 results[i] = _REJECTED
                 continue
-            if (self.prefilter
-                    and min(len(pr.q), len(pr.t)) >= sketch.SCREEN_MIN_QT
-                    and sketch.reject_from_hit(hit, len(pr.q), len(pr.t),
-                                               pr.pct, band)):
-                results[i] = _REJECTED
-                _bump(self.counts, pairs_prefiltered=1)
-                continue
+            if (self.prefilter and i not in screen_set
+                    and min(len(pr.q), len(pr.t)) >= sketch.SCREEN_MIN_QT):
+                screened += 1
+                if sketch.reject_from_hit(hit, len(pr.q), len(pr.t), pr.pct,
+                                          band):
+                    results[i] = _REJECTED
+                    rejected += 1
+                    continue
             if abs(hit.diag) > band // 4:
                 lines[i] = np.asarray(hit.line, np.int32)
             else:
                 # near-diagonal: the default corner-to-corner line
                 lines[i] = np.array([0, 0, len(pr.q), len(pr.t)], np.int32)
-            groups[(bucket_len(len(pr.q), self.quant),
-                    bucket_len(len(pr.t), self.quant))].append(i)
-        _bump(self.counts, pair_fills=len(groups), pairs=len(lines))
+            fill_ids.append(i)
+        groups = self._groups(pairs, fill_ids)
+        _bump(self.counts, pair_fills=len(groups), pairs=len(lines),
+              pairs_seeded_device=len(dev_ids),
+              pairs_seeded_host=len(host_ids), pairs_screened=screened,
+              pairs_prefiltered=rejected)
 
         def dispatch(idxs, key):
             qmax, tmax = key
@@ -556,13 +889,24 @@ class PairExecutor:
 
 class BatchExecutor:
     """Serves RefineRequests (one window's whole refinement, the only
-    request the production generators yield) in packed slabs: requests
-    group by (qmax, tmax, iters), each group's (hole, pass) rows are laid
-    into (R, qmax) slabs first-fit-decreasing by hole (pipeline/pack.py),
-    and each slab is ONE device step (_refine_step_packed).  A slab's idxs
-    are its HOLES, so the OOM rung bisects by hole and each half re-packs
-    into the smaller covering slab; the per-request replay is refine_host
-    over the per-hole round, on the same device."""
+    request the production generators yield) and bare RoundRequests.
+
+    Packed (``cfg.pass_packing``, the default): refine requests group by
+    (qmax, tmax, iters), each group's (hole, pass) rows are laid into (R,
+    qmax) slabs first-fit-decreasing by hole (pipeline/pack.py), and each
+    slab is ONE device step (_refine_step_packed).  A slab's idxs are its
+    HOLES, so the OOM rung bisects by hole and each half re-packs into the
+    smaller covering slab.
+
+    Bucketed (--pass-buckets, the A/B control): refine requests group by
+    (P, qmax, _fused_tmax, iters), P being the request's pass bucket, and
+    each group is ONE (Z, P) step (_refine_step) with its pad passes
+    filled, walked and masked out of the vote; the OOM rung bisects the
+    group's holes.  Bare RoundRequests always take the bucketed single
+    round (_round_step), grouped by (P, qmax, tmax).
+
+    Either way the per-request replay is refine_host (or the round) over
+    the per-hole round, on the same device."""
 
     # OOM resplit ladder: three halvings before the per-request replay
     max_oom_resplits = 3
@@ -579,6 +923,9 @@ class BatchExecutor:
                            cfg.banded_impl)
         self.slab_rows = pack_mod.pow2(max(1, cfg.slab_rows))
         self.slab_ladder = max(1, int(cfg.slab_shape_ladder))
+        # one device: the JAX package's rule (pass_packing, and --mesh is
+        # ignored on a single device) reduces to the flag
+        self.packing = bool(cfg.pass_packing)
 
     def _bp_consts(self):
         cfg = self.cfg
@@ -613,16 +960,144 @@ class BatchExecutor:
             r0 += n
         return qs, qlens, row_mask, seg, ts, tlens
 
+    def _stack_group(self, reqs, idxs, P, qmax, tmax):
+        """Stack a bucketed group's requests into (Z, P) step inputs, Z =
+        len(idxs): each request keeps its own P pass rows (pad passes
+        included) and its draft padded to tmax.  Unlike the JAX package
+        (_z_bucket), Z is not padded to a power of two: the port compiles
+        nothing per shape."""
+        Z = len(idxs)
+        qs = np.zeros((Z, P, qmax), np.uint8)
+        qlens = np.zeros((Z, P), np.int32)
+        ts = np.full((Z, tmax), banded.PAD, np.uint8)
+        tlens = np.ones((Z,), np.int32)
+        row_mask = np.zeros((Z, P), bool)
+        for z, i in enumerate(idxs):
+            req = reqs[i]
+            qs[z] = req.qs
+            qlens[z] = req.qlens
+            ts[z] = pad_to(req.draft, tmax)
+            tlens[z] = len(req.draft)
+            row_mask[z] = req.row_mask
+        return qs, qlens, ts, tlens, row_mask
+
     def run(self, requests) -> list:
-        """Satisfy all RefineRequests; results align index-for-index
-        (RefineResult, or an Exception for a request whose replay failed)."""
-        for r in requests:
-            if not isinstance(r, RefineRequest):
-                raise TypeError(f"BatchExecutor serves RefineRequests, got "
-                                f"{type(r).__name__}")
-        return self._run_refine_packed(requests)
+        """Satisfy all requests (RefineRequest, the production window
+        protocol, and bare RoundRequest); results align index-for-index
+        (RefineResult / RoundResult, or an Exception for a request whose
+        replay failed)."""
+        results: List[object] = [None] * len(requests)
+        refine, rounds = [], []
+        for i, r in enumerate(requests):
+            if isinstance(r, RefineRequest):
+                refine.append(i)
+            elif isinstance(r, RoundRequest):
+                rounds.append(i)
+            else:
+                raise TypeError(f"BatchExecutor serves RefineRequests and "
+                                f"RoundRequests, got {type(r).__name__}")
+        for kind, idxs in ((self._run_refine, refine),
+                           (self._run_rounds, rounds)):
+            if idxs:
+                for i, res in zip(idxs, kind([requests[i] for i in idxs])):
+                    results[i] = res
+        return results
+
+    def _run_rounds(self, requests: List[RoundRequest]) -> list:
+        """Bare rounds, one bucketed (Z, P) step per (P, qmax, tmax)
+        group."""
+        cfg = self.cfg
+        M = cfg.max_ins_per_col
+        groups: Dict[tuple, List[int]] = defaultdict(list)
+        for i, req in enumerate(requests):
+            P, qmax = req.qs.shape
+            groups[(P, qmax, bucket_len(len(req.draft), self.len_quant))
+                   ].append(i)
+        results: List[object] = [None] * len(requests)
+        _bump(self.counts, round_groups=len(groups))
+        pin = self.device.type == "cuda"
+
+        def dispatch(idxs, key):
+            P, qmax, tmax = key
+            buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
+                                               tmax), pin=pin)
+            step = _round_step(cfg.align, M, tmax, self._bp_consts(),
+                               (P, qmax), cfg.banded_impl)
+            _bump(self.counts, bucketed_dispatches=1)
+            return step(buf.to(self.device, non_blocking=pin))
+
+        def finish(idxs, key, out):
+            cons, ins_base, ins_votes, ncov, nwin, bp, advance = \
+                _unpack_round(out.cpu().numpy(), M, key[2])
+            for z, i in enumerate(idxs):
+                results[i] = RoundResult(
+                    cons=cons[z], ins_base=ins_base[z],
+                    ins_votes=ins_votes[z], ncov=ncov[z], nwin=nwin[z],
+                    tlen=len(requests[i].draft), bp=int(bp[z]),
+                    advance=advance[z])
+
+        def host_one(i):
+            req = requests[i]
+            return self._sm.round(req.qs, req.qlens, req.row_mask, req.draft)
+
+        _run_groups_recovering(groups, dispatch, finish, host_one, results,
+                               self.counts, self.max_oom_resplits,
+                               self.oom_backoff_s)
+        return results
+
+    def _run_refine(self, requests: List[RefineRequest]) -> list:
+        """Whole-window refinement: packed slabs, or under --pass-buckets
+        one bucketed (Z, P) step per (P, qmax, _fused_tmax, iters) group.
+        A hole whose draft outgrows the group's tmax is replayed exactly
+        on the per-hole path (refine_host)."""
+        if self.packing:
+            return self._run_refine_packed(requests)
+        cfg = self.cfg
+        M = cfg.max_ins_per_col
+        groups: Dict[tuple, List[int]] = defaultdict(list)
+        for i, req in enumerate(requests):
+            P, qmax = req.qs.shape
+            groups[(P, qmax, _fused_tmax(len(req.draft), self.len_quant),
+                    req.iters)].append(i)
+        results: List[object] = [None] * len(requests)
+        _bump(self.counts, windows=len(requests), bucketed_groups=len(groups))
+        pin = self.device.type == "cuda"
+
+        def host_one(i):
+            req = requests[i]
+            return refine_host(self._sm.round, req.qs, req.qlens,
+                               req.row_mask, req.draft, req.iters)
+
+        def dispatch(idxs, key):
+            P, qmax, tmax, iters = key
+            buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
+                                               tmax), pin=pin)
+            step = _refine_step(cfg.align, M, tmax, iters,
+                                self._bp_consts(), (P, qmax),
+                                cfg.banded_impl)
+            _bump(self.counts, bucketed_dispatches=1)
+            return step(buf.to(self.device, non_blocking=pin))
+
+        def finish(idxs, key, out):
+            (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
+             ovf) = _unpack_refine(out.cpu().numpy(), M, key[2])
+            for z, i in enumerate(idxs):
+                if ovf[z]:
+                    _bump(self.counts, refine_overflows=1)
+                    _host_replay_all([i], host_one, results, self.counts)
+                    continue
+                results[i] = RefineResult(rr=RoundResult(
+                    cons=cons[z], ins_base=ins_base[z],
+                    ins_votes=ins_votes[z], ncov=ncov[z], nwin=nwin[z],
+                    tlen=int(dlen[z]), bp=int(bp[z]), advance=advance[z]))
+
+        _run_groups_recovering(groups, dispatch, finish, host_one, results,
+                               self.counts, self.max_oom_resplits,
+                               self.oom_backoff_s)
+        return results
 
     def _run_refine_packed(self, requests: List[RefineRequest]) -> list:
+        """The packed branch of _run_refine."""
         cfg = self.cfg
         M = cfg.max_ins_per_col
         nrows = [int(r.row_mask.sum()) for r in requests]
@@ -782,7 +1257,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     executor = BatchExecutor(cfg, device, counts)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
                                  device=device, counts=counts,
-                                 prefilter=cfg.prefilter)
+                                 prefilter=cfg.prefilter,
+                                 seed_device_min_t=cfg.seed_device_min_t)
     active: List[_Hole] = []
     finished: Dict[int, _Hole] = {}
     next_idx = 0       # next hole index to admit

@@ -227,6 +227,44 @@ def make_big_bam(path, n_holes: int, rng, tlen_lo=1000, tlen_hi=5000):
     return zs
 
 
+# ---- the long-molecule corpus (a copy of benchmarks/long_molecule's
+#      make_long_fasta, its default "partials" corpus) ----
+
+# a modern-chemistry ~5% per-pass error mix: at 12% the pass-vs-pass indel
+# random walk out-drifts the +-64-diagonal band by 50 kb
+ERR_LONG = dict(sub_rate=0.01, ins_rate=0.02, del_rate=0.02)
+
+
+def make_long_fasta(path: str, holes: int, tlen: int, n_passes: int,
+                    seed: int) -> None:
+    """``holes`` molecules of ``tlen`` bases, each with ``n_passes``
+    COMPLETE traversals and two interrupted ones (12-40% head fragments, of
+    at least 1,200 bases, on the right alternating strand) between each
+    consecutive pair: the ultra-long regime, where the strand walk verifies
+    every complete pass by alignment and about half of them try the
+    wrong-strand arm first.  Seed 11 with 4 x 50,000 bases and 8 passes is
+    the ``4x50000`` scenario of benchmarks/long_molecule_r11.json."""
+    rng = np.random.default_rng(seed)
+    zs = []
+    for h in range(holes):
+        t = rng.integers(0, 4, tlen).astype(np.uint8)
+        passes, strands = [], []
+        for trav in range(3 * n_passes - 2):
+            strand = trav % 2
+            p = mutate(rng, t, **ERR_LONG)
+            if strand:
+                p = enc.revcomp_codes(p)
+            if trav % 3:   # interrupted traversal: head fragment
+                keep = int(len(p) * (0.12 + 0.28 * rng.random()))
+                p = p[:max(keep, 1200)]
+            passes.append(p)
+            strands.append(strand)
+        zs.append(SynthZmw(movie="mv", hole=str(h), template=t,
+                           passes=passes, strands=strands))
+    with open(path, "w") as f:
+        f.write(make_fasta(zs))
+
+
 def _tie_pair(seed: int, tlen: Optional[int] = None):
     """A noisy pair (found by a seed search) whose local path statistics
     change if one level of the F scan let the earlier cell win a tie: seed

@@ -30,22 +30,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--parent-rotband``, the parent commit's walk and rotating-band fill
    against this one's in turns;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
-   through the port's CLI on the card in three arms — the default (the
-   batched packed driver), ``--banded-impl rotband`` and ``--batch off`` —
-   twice each, alternating.  Each output must have the JAX package's pinned
-   md5, no device step may fail over to its per-request replay, and the
-   launch counts (reset just before and read just after each run) must show
-   the default run going through the band-local fill, the local fill and
-   the walk, and the rotband run through the rotating-band fill.  A cold
-   default run comes first (the CUDA modules of the torch ops load on first
-   launch) and is reported apart; it records its local-fill groups, and the
-   local fill's launch choices are timed on the one with the most rows.
-   Then the default and the rotband arm once more each under
-   torch.profiler, for the device busy time by kernel and each kernel's
-   device time per launch on the main path;
+   through the port's CLI on the card in four arms — the default (the
+   batched packed driver), ``--banded-impl rotband``, ``--pass-buckets
+   4,8,16,32`` (the bucketed (Z, P) driver) and ``--batch off`` — twice
+   each, alternating, and the bucketed arm once more under ``--banded-impl
+   rotband``.  Each output must have the JAX package's pinned md5, no
+   device step may fail over to its per-request replay, the driver's
+   counters must show packed slabs and no bucketed group in a packed run
+   and the reverse in a bucketed one, and the launch counts (reset just
+   before and read just after each run) must show the default run going
+   through the band-local fill, the local fill and the walk, the rotband
+   run through the rotating-band fill, and each bucketed run through its
+   arm's global fill and the walk.  A cold default run comes first (the
+   CUDA modules of the torch ops load on first launch) and is reported
+   apart; it records its local-fill groups, and the local fill's launch
+   choices are timed on the one with the most rows.  Then the default and
+   the rotband arm once more each under torch.profiler, for the device busy
+   time by kernel and each kernel's device time per launch on the main
+   path;
 5. 8 HiFi-size holes (15 kb templates, at least 10 passes) through the CLI
    on the card (the batched driver); each consensus must reach identity
-   >= 0.99 against its template.
+   >= 0.99 against its template;
+6. the long-molecule corpus (benchmarks/long_molecule.py's 4x50000
+   scenario: 4 holes, 50 kb templates, seed 11) through the CLI in three
+   pre-alignment arms — the default (device seeding), ``--seed-device-min-t
+   0`` (host seeding behind the device screen) and ``--prefilter off
+   --seed-device-min-t 0`` (all host) — each to the JAX package's md5, with
+   counters that show each route, the default arm's equal to the JAX
+   package's; the local fill against its plain version on the default
+   arm's recorded group with the longest query (50 kb rows, the body with
+   unpacked statistics); then the default and the screen arm once more under
+   torch.profiler, for the device time of the seed and screen steps (each
+   call in a profiler range of its own) and the arms' device busy time.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -70,6 +86,20 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 
 SCALE64_MD5 = "0c83700d0fb67e3c89169f99574a9a2d"
 SCALE64_BYTES = 188359
+# the long-molecule corpus: benchmarks/long_molecule.py's 4x50000 scenario
+# (4 holes, 50,000-base templates, 8 complete passes, seed 11), its flags
+# and the JAX package's md5 and pre-alignment counters for its default arm
+# (benchmarks/long_molecule_r11.json, confirmed on the JAX package's CPU
+# run of the same corpus)
+LONG_FLAGS = ["-A", "-m", "1000", "-M", "4000000", "--batch", "on",
+              "--slab-rows", "32"]
+LONG_MD5 = "1c9d8a68d1245c2b1c30becaa18a1f50"
+LONG_COUNTS = {"pairs": 28, "pairs_screened": 55, "pairs_prefiltered": 27,
+               "pairs_seeded_device": 56, "pairs_seeded_host": 0,
+               "windows": 99}
+LONG_ARMS = {"default": [], "screen": ["--seed-device-min-t", "0"],
+             "host": ["--prefilter", "off", "--seed-device-min-t", "0"]}
+BUCKETS = ["--pass-buckets", "4,8,16,32"]
 
 # H100 SXM peaks used for the bounds: HBM rate from NVIDIA's data sheet; the
 # INT32 rate is 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (Hopper white
@@ -707,22 +737,18 @@ def time_one_parent_rotband(dev, args, run_rot, reps, src, k):
     return {"order": "parent, new, new, parent", "ms": times}
 
 
-def phase_scale64(device, extra=(), n_holes=64, record=None):
-    """The 64-hole scale corpus through the CLI; returns (seconds, launch
-    counts).  No device step may fail over to its per-request replay.  A
-    ``record`` list receives a copy of the inputs of every local-fill launch
-    (its groups of strand-walk pairs)."""
+def run_cli(argv, what, record=None):
+    """cli.main(argv) under -v with its stderr captured (echoed without the
+    per-hole segment dump); returns (seconds, launch counts reset just
+    before, the driver's counters from -v's last stderr line).  A
+    ``record`` list receives a copy of the inputs of every local-fill
+    launch of the run (its groups of strand-walk pairs)."""
     import contextlib
     import io
 
     from ccsx_tpu_torch import cli
     from ccsx_tpu_torch.ops import banded_cuda, cuda_ext
-    from ccsx_tpu_torch.utils import synth
 
-    bam = os.path.join(WORK, "in64.bam")
-    out = os.path.join(WORK, "out64.fa")
-    if not os.path.exists(bam):
-        synth.make_big_bam(bam, n_holes, np.random.default_rng(42))
     err = io.StringIO()
     local = banded_cuda.batched_align_local
     if record is not None:
@@ -730,84 +756,145 @@ def phase_scale64(device, extra=(), n_holes=64, record=None):
             record.append([x.clone() for x in a[:5]])
             return local(*a, **k)
         banded_cuda.batched_align_local = recording
-    cuda_ext.reset_counts()
-    t0 = time.perf_counter()
     try:
+        cuda_ext.reset_counts()
+        t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
-            rc = cli.main(["--device", device, *extra, bam, out])
+            rc = cli.main(["-v", *argv])
+        secs = time.perf_counter() - t0
+        counts = dict(cuda_ext.LAUNCHES)
     finally:
         banded_cuda.batched_align_local = local
-    secs = time.perf_counter() - t0
-    counts = dict(cuda_ext.LAUNCHES)
-    sys.stderr.write(err.getvalue())
+    text = err.getvalue()
+    sys.stderr.write("".join(line for line in text.splitlines(True)
+                             if " segment offs=" not in line))
     if rc != 0:
-        raise AssertionError(f"CLI {list(extra)} exited {rc} on the scale "
-                             "corpus")
-    if "device step failed" in err.getvalue():
-        raise AssertionError(f"CLI {list(extra)}: a device step failed over "
-                             "to its per-request replay")
+        raise AssertionError(f"CLI {what} exited {rc}")
+    if "device step failed" in text:
+        raise AssertionError(f"CLI {what}: a device step failed over to its "
+                             "per-request replay")
+    last = text.strip().splitlines()[-1]
+    driver = {k: int(v) for k, v in (kv.split("=", 1) for kv in last.split()
+                                     if "=" in kv) if v.isdigit()}
+    if driver.get("failed_steps") or driver.get("host_replays"):
+        raise AssertionError(f"CLI {what}: device steps failed over to their "
+                             f"replay: {driver}")
+    return secs, counts, driver
+
+
+def phase_scale64(device, extra=(), n_holes=64, record=None):
+    """The 64-hole scale corpus through the CLI; returns (seconds, launch
+    counts, driver counters).  No device step may fail over to its
+    per-request replay.  A ``record`` list receives a copy of the inputs of
+    every local-fill launch (its groups of strand-walk pairs)."""
+    from ccsx_tpu_torch.utils import synth
+
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, "out64.fa")
+    if not os.path.exists(bam):
+        synth.make_big_bam(bam, n_holes, np.random.default_rng(42))
+    secs, counts, driver = run_cli(["--device", device, *extra, bam, out],
+                                   f"{list(extra)} on the scale corpus",
+                                   record)
     data = open(out, "rb").read()
     md5 = hashlib.md5(data).hexdigest()
+    grouping = {k: driver[k] for k in ("slabs", "bucketed_groups",
+                                       "bucketed_dispatches") if k in driver}
     print(f"[chip_smoke] scale corpus {list(extra) or 'default'}: {n_holes} "
           f"holes in {secs:.3f}s ({n_holes / secs:.2f} holes/s), "
-          f"{len(data)} bytes, md5 {md5}, launches {counts}", flush=True)
+          f"{len(data)} bytes, md5 {md5}, launches {counts}, grouping "
+          f"{grouping}", flush=True)
     if n_holes == 64 and (md5 != SCALE64_MD5 or len(data) != SCALE64_BYTES):
         raise AssertionError(f"scale corpus output {md5}/{len(data)} != "
                              f"pinned {SCALE64_MD5}/{SCALE64_BYTES}")
-    return secs, counts
+    bucketed = "--pass-buckets" in extra
+    if "--batch" not in extra and (
+            bool(driver.get("slabs")) == bucketed
+            or bool(driver.get("bucketed_groups")) != bucketed):
+        raise AssertionError(f"CLI {list(extra)}: the wrong grouping ran "
+                             f"({grouping})")
+    return secs, counts, driver
 
 
-def phase_profile(device, extra=()):
-    """Where the scale corpus's time goes: a run of one arm again under
-    torch.profiler, device time summed by kernel name against the wall
-    time, and each port kernel's device time per launch of that run.
-    Returns {"wall_s", "device_s", "top_kernels", "ms_per_launch"} or None
-    when the profiler records no device time."""
+def profile_cli(argv, what):
+    """One CLI run under torch.profiler, with each device screen and device
+    seed step inside a ``record_function`` range named after it: the wall,
+    the device time summed by kernel name, each port kernel's device time
+    per launch, and each step kind's device time (its range's kernels) and
+    CUDA-event span.  Returns that record, or None when the profiler records
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ccsx_tpu_torch import cli
     from ccsx_tpu_torch.ops import cuda_ext
 
-    bam = os.path.join(WORK, "in64.bam")
-    out = os.path.join(WORK, "out64_prof.fa")
     cuda_ext.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with StepTimer() as steps, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = cli.main(["--device", device, *extra, bam, out])
+        rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = dict(cuda_ext.LAUNCHES)
     if rc != 0:
-        raise AssertionError(f"CLI exited {rc} under the profiler")
+        raise AssertionError(f"CLI {what} exited {rc} under the profiler")
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = {}
+    for ev in prof.events():
+        # a CPU range's device time is that of the kernels launched in it
+        if ev.name in steps.spans and ev.device_type == cpu:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            ranges[ev.name] = ranges.get(ev.name, 0.0) + us / 1e3
     by = {}
     for ev in prof.key_averages():
+        if ev.key in steps.spans:
+            continue       # the ranges themselves, never device busy
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us and ev.device_type == torch.autograd.DeviceType.CUDA:
             by[ev.key] = us / 1e6
     if not by:
-        print("[chip_smoke] profile: no device time recorded (not measured)")
+        print(f"[chip_smoke] profile of {what}: no device time recorded (not "
+              "measured)")
         return None
     dev_s = sum(by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     per_launch = {}
     for name, sym in PROFILE_NAMES.items():
-        s = sum(v for k, v in by.items() if sym in k)
+        t = sum(v for k, v in by.items() if sym in k)
         if counts[name]:
-            per_launch[name] = s * 1e3 / counts[name]
-    print(f"[chip_smoke] profile of the scale corpus {list(extra) or 'default'}"
-          f": wall {wall:.3f}s (under the profiler), device busy {dev_s:.3f}s "
-          f"({100 * dev_s / wall:.1f}%), launches {counts}", flush=True)
+            per_launch[name] = t * 1e3 / counts[name]
+    step_ms = {k: {"calls": len(v),
+                   "device_ms": ranges.get(k) or "not measured",
+                   "event_span_ms": sum(a.elapsed_time(b) for a, b in v)}
+               for k, v in steps.spans.items() if v}
+    print(f"[chip_smoke] profile of {what}: wall {wall:.3f}s (under the "
+          f"profiler), device busy {dev_s:.3f}s ({100 * dev_s / wall:.1f}%), "
+          f"launches {counts}", flush=True)
     for k, v in top:
         print(f"[chip_smoke]   {v * 1e3:9.2f} ms  {k[:90]}")
     print("[chip_smoke]   device ms per launch: " + ", ".join(
         f"{k} {v:.4f}" for k, v in per_launch.items()), flush=True)
+    for k, v in step_ms.items():
+        print(f"[chip_smoke]   {k}: {v['calls']} calls, device time "
+              f"{v['device_ms']} ms (its kernels), {v['event_span_ms']:.3f} ms "
+              "between CUDA events", flush=True)
     return {"wall_s": wall, "device_s": dev_s,
             "top_kernels": [[k[:80], v] for k, v in top],
-            "ms_per_launch": per_launch}
+            "ms_per_launch": per_launch, "steps": step_ms}
+
+
+def phase_profile(device, extra=()):
+    """Where the scale corpus's time goes: a run of one arm again under the
+    profiler (profile_cli)."""
+    return profile_cli(["--device", device, *extra,
+                        os.path.join(WORK, "in64.bam"),
+                        os.path.join(WORK, "out64_prof.fa")],
+                       f"the scale corpus {list(extra) or 'default'}")
 
 
 def phase_hifi(device, n_holes=8, tlen=15000, min_identity=0.99,
@@ -859,6 +946,141 @@ def phase_hifi(device, n_holes=8, tlen=15000, min_identity=0.99,
     if min(idents) < min_identity:
         raise AssertionError(f"identity {min(idents):.5f} < {min_identity}")
     return secs, bases_in, idents
+
+
+class StepTimer:
+    """Puts each device screen and device seed step launched inside the
+    block in a profiler range named after it, between two CUDA events, by
+    wrapping the two step factories; ``spans[name]`` holds the events."""
+
+    NAMES = ("screen_step", "seed_step")
+
+    def __enter__(self):
+        import torch
+
+        from ccsx_tpu_torch.ops import seed_device, sketch
+
+        self.spans = {n: [] for n in self.NAMES}
+        self._mods = {"screen_step": sketch, "seed_step": seed_device}
+        self._real = {n: getattr(m, n) for n, m in self._mods.items()}
+        for name, real in self._real.items():
+            def factory(qmax, tmax, _real=real, _name=name):
+                step = _real(qmax, tmax)
+
+                def timed(big, small):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    with torch.profiler.record_function(_name):
+                        a.record()
+                        out = step(big, small)
+                        b.record()
+                    self.spans[_name].append((a, b))
+                    return out
+                return timed
+            setattr(self._mods[name], name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self._mods[name], name, real)
+
+
+def phase_long(device):
+    """The long-molecule corpus (benchmarks/long_molecule.py's 4x50000
+    scenario, synthesized here from its seed) through the CLI in the three
+    pre-alignment arms: the default (templates of 16,384 bases and more
+    seed on the device), --seed-device-min-t 0 (every pair seeds on the
+    host, and the long ones are screened on the device first) and
+    --prefilter off --seed-device-min-t 0 (all on the host).  Each must
+    give the JAX package's md5; the counters must show each route ran, and
+    the default arm's must equal the JAX package's.  Then the default and
+    the screen arm once more each under the profiler, for the device time
+    of the seed and screen steps.  Returns ({arm: record}, {arm: profile})."""
+    from ccsx_tpu_torch.utils import synth
+
+    fa = os.path.join(WORK, "long.fa")
+    synth.make_long_fasta(fa, 4, 50000, 8, 11)
+    arms = {}
+    groups = []
+    for arm, extra in LONG_ARMS.items():
+        out = os.path.join(WORK, f"long_{arm}.fa")
+        secs, launches, driver = run_cli(
+            [*LONG_FLAGS, "--device", device, *extra, fa, out],
+            f"{extra} on the long-molecule corpus",
+            groups if arm == "default" else None)
+        md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
+        keys = ("pairs", "pairs_screened", "pairs_prefiltered",
+                "pairs_seeded_device", "pairs_seeded_host", "screen_steps",
+                "seed_steps", "pair_fills", "windows", "slabs", "out")
+        counters = {k: driver.get(k, 0) for k in keys}
+        arms[arm] = {"seconds": secs, "md5": md5, "counters": counters,
+                     "launches": launches}
+        print(f"[chip_smoke] long-molecule {arm} {extra}: {secs:.3f}s, md5 "
+              f"{md5}, counters {counters}, local-fill launches "
+              f"{launches['banded_local']}, launches {launches}", flush=True)
+        if md5 != LONG_MD5:
+            raise AssertionError(f"long-molecule {arm}: md5 {md5} != pinned "
+                                 f"{LONG_MD5}")
+        dev, scr = counters["pairs_seeded_device"], counters["screen_steps"]
+        ok = {"default": dev > 0 and counters["seed_steps"] > 0,
+              "screen": dev == 0 and scr > 0 and counters["pairs_screened"] > 0,
+              "host": dev == 0 and scr == 0
+              and counters["pairs_screened"] == 0}[arm]
+        if not ok or launches["banded_local"] <= 0:
+            raise AssertionError(f"long-molecule {arm}: the counters do not "
+                                 f"show the arm's route: {counters}")
+    got = {k: arms["default"]["counters"][k] for k in LONG_COUNTS}
+    if got != LONG_COUNTS:
+        raise AssertionError(f"long-molecule default counters {got} != the "
+                             f"JAX package's {LONG_COUNTS}")
+    arms["default"]["local_fill_check"] = check_local_group(groups)
+    profiles = {arm: profile_cli(
+        [*LONG_FLAGS, "--device", device, *LONG_ARMS[arm], fa,
+         os.path.join(WORK, f"long_{arm}_prof.fa")],
+        f"the long-molecule corpus, {arm} arm") for arm in ("default",
+                                                             "screen")}
+    return arms, profiles
+
+
+def check_local_group(groups):
+    """The local fill against its plain version on one group that the
+    long-molecule default arm launched it on, the same CUDA tensors: the
+    group with the longest query (the unpacked-statistics body at 50 kb
+    rows; the plain version's time grows with the query rows, not the
+    pairs).  Every output of every pair must be equal."""
+    import torch
+
+    from ccsx_tpu_torch.ops import banded, banded_cuda
+
+    if not groups:
+        raise AssertionError("the long-molecule default arm launched no "
+                             "local fill")
+    qs, qlens, ts, tlens, lines = max(
+        groups, key=lambda g: (int(g[1].max()), len(g[1])))
+    qmax, tmax = qs.shape[1], ts.shape[1]
+    if qmax + tmax + 128 < 32768:
+        raise AssertionError(f"the long-molecule local fill group "
+                             f"(qmax {qmax}, tmax {tmax}) does not reach the "
+                             "unpacked-statistics body")
+    kl = torch.stack(list(banded_cuda.batched_align_local(
+        qs, qlens, ts, tlens, lines)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl = torch.stack(list(banded.banded_local(qs, qlens, ts, tlens, lines)))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    mismatches = int((kl != pl).sum())
+    rec = {"pairs": len(qlens), "qmax": qmax, "tmax": tmax,
+           "query_rows_max": int(qlens.max()), "mismatches": mismatches,
+           "max_abs_err": int((kl.long() - pl.long()).abs().max()),
+           "plain_s": plain_s}
+    print(f"[chip_smoke] long-molecule local fill vs plain on its recorded "
+          f"group ({len(groups)} recorded): {rec}", flush=True)
+    if mismatches:
+        raise AssertionError(f"local fill differs from its plain version on "
+                             f"the long-molecule group: {kl.tolist()} vs "
+                             f"{pl.tolist()}")
+    return rec
 
 
 def main(argv=None) -> int:
@@ -920,7 +1142,7 @@ def main(argv=None) -> int:
     # (lazily, on first launch): the cold run a user's first CLI call sees,
     # reported apart from the warm reruns
     groups = []
-    cold_s, _ = phase_scale64("cuda", record=groups)
+    cold_s, _, _ = phase_scale64("cuda", record=groups)
     print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s "
           f"(recording its {len(groups)} local-fill groups)", flush=True)
     # the local fill's launch choices on the scale corpus's own group with
@@ -930,7 +1152,7 @@ def main(argv=None) -> int:
         f"SCALE64 group, {len(big[0])} pairs, qmax {big[0].shape[1]}"] = \
         time_choices(torch.device("cuda"), big[:4], big[4])
     arms = {"batched": [], "rotband": ["--banded-impl", "rotband"],
-            "per_hole": ["--batch", "off"]}
+            "bucketed": BUCKETS, "per_hole": ["--batch", "off"]}
     reps = {k: [] for k in arms}
     for _ in range(2):     # alternating, so a drift falls on every arm alike
         for k, extra in arms.items():
@@ -940,9 +1162,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"SCALE64 {k}: launch counts differ between "
                                  f"reruns: {rr[0][1]} vs {rr[1][1]}")
     runs = {k: rr[0] for k, rr in reps.items()}
+    # the bucketed path under the other global-fill arm, once
+    buck_rot = phase_scale64("cuda", BUCKETS + arms["rotband"])
     prof = phase_profile("cuda")
     prof_rot = phase_profile("cuda", arms["rotband"])
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
+    long_arms, long_prof = phase_long("cuda")
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -954,11 +1179,20 @@ def main(argv=None) -> int:
             "banded_global"]:
         raise AssertionError("a global-fill arm launched the other arm's "
                              "kernel")
+    for arm, (_, counts, _) in (("bucketed", runs["bucketed"]),
+                                ("bucketed rotband", buck_rot)):
+        want = ("banded_rotband" if "rotband" in arm else "banded_global",
+                "traceback_walk")
+        other = "banded_global" if "rotband" in arm else "banded_rotband"
+        if min(counts[k] for k in want) <= 0 or counts[other]:
+            raise AssertionError(f"SCALE64 {arm}: launches {counts} do not "
+                                 f"show {want} alone")
     print(f"[chip_smoke] SCALE64 walls (warm, in-process; cold first run "
           f"{cold_s:.3f}s): " + ", ".join(
-              f"{k} " + " / ".join(f"{s:.3f}s ({64 / s:.2f} holes/s)"
-                                   for s, _ in rr)
-              for k, rr in reps.items()), flush=True)
+              f"{k} " + " / ".join(f"{r[0]:.3f}s ({64 / r[0]:.2f} holes/s)"
+                                   for r in rr)
+              for k, rr in reps.items())
+          + f", bucketed rotband {buck_rot[0]:.3f}s", flush=True)
     # each kernel's device time per launch in the profiled run of its arm
     per_launch = {k: ((prof_rot if k == "banded_rotband" else prof) or {}
                       ).get("ms_per_launch", {}).get(k) for k in SOURCES}
@@ -967,16 +1201,23 @@ def main(argv=None) -> int:
                     library_ms=None, main_path_ms_per_launch=per_launch[k],
                     **records[k]) for k in SOURCES]
     print(json.dumps({"kernels": kernels,
-                      "scale64": {k: {"seconds": [s for s, _ in rr],
-                                      "holes_per_s": [64 / s for s, _ in rr],
-                                      "launches": rr[0][1]}
+                      "scale64": {k: {"seconds": [r[0] for r in rr],
+                                      "holes_per_s": [64 / r[0] for r in rr],
+                                      "launches": rr[0][1],
+                                      "grouping": {g: rr[0][2][g] for g in (
+                                          "slabs", "bucketed_groups",
+                                          "bucketed_dispatches")
+                                          if g in rr[0][2]}}
                                   for k, rr in reps.items()}
-                      | {"cold_first_run_s": cold_s,
+                      | {"bucketed_rotband_s": buck_rot[0],
+                         "cold_first_run_s": cold_s,
                          "profile_batched": prof,
                          "profile_rotband": prof_rot},
                       "hifi": {"seconds": hifi_s,
                                "bases_per_s": hifi_bases / hifi_s,
-                               "min_identity": min(idents)}}))
+                               "min_identity": min(idents)},
+                      "long_molecule": {"arms": long_arms,
+                                        "profiles": long_prof}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -100,21 +100,22 @@ def test_sketch_rules_match_reference():
 
 
 def test_pair_executor_host_twins_match_per_pair_spec():
-    """With the host-twin floor lowered to these pairs' lengths, every pair
-    counts as one the JAX package would seed and screen on its device; the
-    results (PairBatch arms included) equal the per-pair strand_match of
-    the per-hole path, except that a filtered pair's payload is empty (the
-    walk discards the payload of a failed pair)."""
+    """With the device-seeding floor lowered to these pairs' lengths, every
+    pair (PairBatch arms included) seeds through seed_device.seed_step, and
+    the results equal the per-pair strand_match of the per-hole path (its
+    host twin), except that a filtered pair's payload is empty (the walk
+    discards the payload of a failed pair)."""
     pairs = _pairs(37, 2, 1300)
     reqs = [prepare.PairRequest(q, t, 75) for q, t in pairs]
     batch_req = prepare.PairBatch(reqs[:2])
     counts = {}
-    ex = batch.PairExecutor(AlignParams(), device="cpu", counts=counts)
-    ex.HOST_TWIN_MIN_T = 1000
+    ex = batch.PairExecutor(AlignParams(), device="cpu", counts=counts,
+                            seed_device_min_t=1000)
     got = ex.run(reqs + [batch_req])
     spec = [HostAligner(AlignParams(), device="cpu").strand_match(q, t, 75)
             for q, t in pairs]
-    assert counts["pairs_host_twin"] == len(pairs) + 2
+    assert counts["pairs_seeded_device"] == len(pairs) + 2
+    assert counts["pairs_seeded_host"] == 0 and counts["seed_steps"] == 1
     assert got[-1] == got[:2]
     for (ok, rs), (ok_s, rs_s) in zip(got[:-1], spec):
         assert ok == ok_s

@@ -15,7 +15,8 @@ import torch
 from ccsx_tpu_torch.config import AlignParams, CcsConfig
 from ccsx_tpu_torch.consensus import star
 from ccsx_tpu_torch.ops import (banded, banded_cuda, banded_rotband, cuda_ext,
-                                seed, traceback)
+                                seed, seed_device, sketch, traceback)
+from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.pipeline import batch
 from ccsx_tpu_torch.utils import synth
 
@@ -206,6 +207,70 @@ def test_packed_refine_step_on_card_matches_cpu(cuda):
         got = core(*[a.to(cuda) for a in args])
         for w, g in zip(want, got):
             assert torch.equal(g.cpu(), w), impl
+
+
+def test_bucketed_refine_step_on_card_matches_cpu(cuda):
+    """One bucketed (Z, P) refine step (pad passes, an empty hole, iters 2)
+    on the card against the same step on the CPU, under both global-fill
+    arms, through the one-buffer transfer protocol."""
+    rng = np.random.default_rng(9)
+    P, qmax, tmax = 8, 1024, 1536
+    Z = 3
+    qs = np.full((Z, P, qmax), 5, np.uint8)
+    qlens = np.zeros((Z, P), np.int32)
+    ts = np.full((Z, tmax), 5, np.uint8)
+    tlens = np.ones(Z, np.int32)
+    for z, n in enumerate((5, 8, 0)):
+        tpl = rng.integers(0, 4, 800).astype(np.uint8)
+        ps = [synth.mutate(rng, tpl, 0.02, 0.05, 0.05) for _ in range(n)]
+        for k, p in enumerate(ps):
+            qs[z, k, :len(p)] = p
+            qlens[z, k] = len(p)
+        if ps:
+            ts[z, :len(ps[0])] = ps[0]
+            tlens[z] = len(ps[0])
+    buf = batch._pack_args((qs, qlens, ts, tlens, qlens > 0))
+    for impl in ("", "rotband"):
+        step = batch._refine_step(AlignParams(), 4, tmax, 2,
+                                  (10, 5, 80, 80, 60), (P, qmax), impl)
+        assert torch.equal(step(buf.to(cuda)).cpu(), step(buf)), impl
+
+
+@pytest.mark.parametrize("group", ["long", "mixed"])
+def test_seed_and_screen_steps_on_card_match_cpu(group, cuda):
+    """The device screen and seeder on the card against the same tensor
+    ops on the CPU: a group of 50 kb strand-walk pairs (forward, wrong
+    strand, unrelated), and a mixed group with N bases, a repeat-heavy
+    template and a query with no 13-mer."""
+    rng = np.random.default_rng(13)
+    L = 50000 if group == "long" else 3000
+    t = rng.integers(0, 4, L).astype(np.uint8)
+    fwd = synth.mutate(rng, t, 0.01, 0.02, 0.02)
+    pairs = [(fwd, t), (enc.revcomp_codes(fwd), t),
+             (rng.integers(0, 4, L).astype(np.uint8), t)]
+    if group == "mixed":
+        rep = np.tile(rng.integers(0, 4, 23).astype(np.uint8), L // 23 + 1)[:L]
+        nq = fwd.copy()
+        nq[rng.random(len(nq)) < 0.05] = 4
+        pairs += [(synth.mutate(rng, rep, 0.02, 0.05, 0.05), rep), (nq, t),
+                  (np.full(700, 4, np.uint8), t)]
+    qmax = star.bucket_len(max(len(q) for q, _ in pairs), 512)
+    tmax = star.bucket_len(max(len(tt) for _, tt in pairs), 512)
+    big = np.full((len(pairs), qmax + tmax), 5, np.uint8)
+    small = np.zeros((len(pairs), 2), np.int32)
+    for z, (q, tt) in enumerate(pairs):
+        big[z, :len(q)] = q
+        big[z, qmax:qmax + len(tt)] = tt
+        small[z] = len(q), len(tt)
+    b, s = torch.from_numpy(big), torch.from_numpy(small)
+    for mod, name in ((sketch, "screen_step"), (seed_device, "seed_step")):
+        step = getattr(mod, name)(qmax, tmax)
+        assert torch.equal(step(b.to(cuda), s.to(cuda)).cpu(), step(b, s)), \
+            name
+    hit = seed_device.hit_from_row(
+        seed_device.seed_step(qmax, tmax)(b.to(cuda), s.to(cuda))[0].cpu())
+    want = seed.seed_diagonal(fwd, t)
+    assert (hit.diag, hit.votes) == (want.diag, want.votes)
 
 
 @pytest.mark.parametrize("n", [1, 3])

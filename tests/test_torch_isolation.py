@@ -44,7 +44,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
-    assert "ccsx_tpu_torch.ops.banded_cuda" in mods
+    assert {"ccsx_tpu_torch.ops.banded_cuda", "ccsx_tpu_torch.ops.seed_device",
+            "ccsx_tpu_torch.consensus.whole_read"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
