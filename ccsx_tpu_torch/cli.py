@@ -8,14 +8,23 @@ to the card; ``--device cpu`` runs the plain PyTorch versions instead.
 the per-hole driver on the CPU, as the JAX package does for an accelerator
 and for its CPU backend; ``--pass-buckets`` switches the batched driver
 from packed slabs to the bucketed (Z, P) grouping.  The tuning knobs keep
-the JAX package's spellings, defaults and error messages.
+the JAX package's spellings, defaults and error messages, and so do the
+recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
+``--profile``) and ``--max-failed-holes``.
 
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
+    python -m ccsx_tpu_torch.cli stats <trace/metrics JSONL>...
+    python -m ccsx_tpu_torch.cli blackbox <ring file or dir>...
+
+The two subcommands are dispatched before the run's arguments are parsed,
+and their imports load neither torch nor jax: they read a run's files on a
+host whose card is wedged.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 from typing import Optional
 
@@ -78,6 +87,26 @@ Port options (long):
                       templates of at least this many bases seed on the
                       device (ops/seed_device.py), shorter ones on the
                       host; 0 seeds every pair on the host [16384]
+--metrics <path>      append JSON-lines metrics events to this path
+--trace <path>        flight recorder: span JSONL here (+ a Chrome
+                      trace-event export at close); device spans close
+                      after their CUDA work has run, and the per-group
+                      table rides every metrics event
+--stall-timeout <sec> hang watchdog: dump thread stacks and the in-flight
+                      shape group when a device step stays open this long,
+                      and mark the run degraded (0 disables; the first
+                      step of each shape gets 10x this budget) [120]
+--profile <dir>       run under torch.profiler (CPU and CUDA activities)
+                      and write its Chrome trace into this directory
+--max-failed-holes <V>
+                      failure budget: an integer count (>= 0, checked per
+                      failure) or a fraction of processed holes in (0, 1)
+                      (checked at the end); exceeding it exits rc 2
+                      [unbounded]
+
+Subcommands:
+stats <jsonl>...      summarize trace/metrics JSONL files
+blackbox <path>...    render CCSX_BLACKBOX ring dumps
 """
 
 
@@ -111,6 +140,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["flush", "grow"])
     p.add_argument("--seed-device-min-t", type=int, default=None,
                    dest="seed_device_min_t", metavar="N")
+    p.add_argument("--metrics", default=None)
+    p.add_argument("--trace", default=None)
+    p.add_argument("--stall-timeout", type=float, default=120.0,
+                   dest="stall_timeout", metavar="SEC")
+    p.add_argument("--profile", default=None, metavar="DIR")
+    p.add_argument("--max-failed-holes", default=None,
+                   dest="max_failed_holes", metavar="V")
     return p
 
 
@@ -153,6 +189,25 @@ def config_from_args(args) -> CcsConfig:
         print(f"Error: --seed-device-min-t must be >= 0, got {min_t}",
               file=sys.stderr)
         raise SystemExit(1)
+    if args.stall_timeout < 0:
+        print(f"Error: --stall-timeout must be >= 0, got "
+              f"{args.stall_timeout}", file=sys.stderr)
+        raise SystemExit(1)
+    max_failed = args.max_failed_holes
+    if max_failed is not None:
+        try:
+            max_failed = float(max_failed)
+            # non-finite, negative and non-integer counts above 1 are
+            # refused; 0 is a valid count: no failure tolerated
+            if (not math.isfinite(max_failed) or max_failed < 0
+                    or (max_failed >= 1
+                        and max_failed != int(max_failed))):
+                raise ValueError
+        except ValueError:
+            print("Error: --max-failed-holes expects an integer count "
+                  ">= 0 or a fraction in (0, 1), got "
+                  f"{args.max_failed_holes!r}", file=sys.stderr)
+            raise SystemExit(1)
     return CcsConfig(
         min_subread_len=args.min_len,
         max_subread_len=args.max_len,
@@ -169,6 +224,10 @@ def config_from_args(args) -> CcsConfig:
         max_passes=args.max_passes,
         window_growth=args.window_growth,
         prefilter=args.prefilter != "off",
+        metrics_path=args.metrics,
+        trace_path=args.trace,
+        stall_timeout_s=args.stall_timeout,
+        max_failed_holes=max_failed,
         # an explicit bucket list selects the bucketed control path; the
         # default is pass packing (pipeline/pack.py)
         pass_packing=pass_buckets is None,
@@ -182,6 +241,17 @@ def config_from_args(args) -> CcsConfig:
 def main(argv: Optional[list] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "stats":
+        # trace/metrics JSONL summarizer: no torch import, no card
+        from ccsx_tpu_torch.utils import trace as trace_mod
+
+        return trace_mod.stats_main(argv[1:])
+    if argv and argv[0] == "blackbox":
+        # crash-persistent ring renderer: no torch import, so it reads a
+        # dead process' last events on a host whose card is wedged
+        from ccsx_tpu_torch.utils import blackbox
+
+        return blackbox.blackbox_main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.help:
         print(USAGE, end="")
@@ -192,8 +262,23 @@ def main(argv: Optional[list] = None) -> int:
         return int(e.code or 0)
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
-    return run_pipeline(args.input, args.output, cfg, batch=args.batch,
-                        inflight=args.inflight)
+    def _run():
+        return run_pipeline(args.input, args.output, cfg, batch=args.batch,
+                            inflight=args.inflight)
+
+    if args.profile:
+        # the counterpart of the JAX package's jax.profiler.trace(DIR)
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(args.profile)):
+            return _run()
+    return _run()
 
 
 if __name__ == "__main__":

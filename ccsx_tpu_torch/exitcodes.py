@@ -7,8 +7,10 @@
 * ``RC_INTERRUPTED`` (75, EX_TEMPFAIL) — a graceful, resumable drain.
 * ``RC_INJECTED_KILL`` (57) — a fault-injection hard exit.
 
-The per-hole driver of this package returns only 0 and 1 today; the other
-codes are kept so the numbering cannot drift from the reference.
+Both drivers of this package return 0, 1 and 2 (``--max-failed-holes``,
+utils/metrics.check_failure_budget); 75 and 57 wait for the drain and
+fault-injection planes and are kept so the numbering cannot drift from the
+reference.
 """
 
 RC_OK = 0

@@ -41,8 +41,17 @@ or a kernel wrapper refusing its tensors, ends the run
 (``cuda_ext.KernelError``, rc 1 from the caller), never replayed or
 quarantined; any other error replays each request of the group through the
 per-hole round on the same device (counted as ``failed_steps`` and
-``host_replays``, which the run reports even without -v), and a failure
+``host_fallbacks``, which the run reports even without -v), and a failure
 there quarantines that one hole.
+
+Recording (utils/trace.py, utils/metrics.py): the JAX package's spans at the
+JAX package's places, with its names and group keys — a device span around
+each device step (``sketch_screen``, ``seed_device``, ``pair_fill``,
+``round``, ``refine``, ``refine_packed``; forced only under --trace), a
+``materialize`` span around each device-to-host read, ``host_replay`` spans
+and ``recover`` instants on the ladder, and the driver's ``ingest_hole``,
+``prep_hole``, ``pair_sweep``, ``refine_sweep`` and ``write_record`` spans
+under the matching stage timers.
 """
 
 from __future__ import annotations
@@ -69,11 +78,9 @@ from ccsx_tpu_torch.ops import cuda_ext
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
 from ccsx_tpu_torch.pipeline import pack as pack_mod
-
-
-def _bump(counts: dict, **kw) -> None:
-    for k, v in kw.items():
-        counts[k] = counts.get(k, 0) + v
+from ccsx_tpu_torch.utils import trace
+from ccsx_tpu_torch.utils.metrics import check_failure_budget
+from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
 
 # ---- failure taxonomy and recovery (shared by both executors) ------------
@@ -103,32 +110,57 @@ def _fatal(exc: BaseException) -> cuda_ext.KernelError:
     return err
 
 
-def _host_replay_all(idxs, host_one, results, counts) -> None:
-    """Replay each request on the per-hole path; a failure there becomes
-    that request's result (an Exception the driver quarantines per hole).
-    A device fault during the replay still ends the run."""
-    for i in idxs:
-        _bump(counts, host_replays=1)
-        try:
+def _replay(i, host_one, results, **span_args) -> None:
+    """Replay request i on the per-hole path, in a ``host_replay`` span; a
+    failure there becomes its result (an Exception the driver quarantines
+    per hole).  A device fault during the replay still ends the run."""
+    try:
+        with trace.span("host_replay", cat="recover", **span_args):
             results[i] = host_one(i)
-        except Exception as e:
-            if classify_failure(e) == "fatal":
-                raise _fatal(e) from e
-            results[i] = e
+    except Exception as e:
+        if classify_failure(e) == "fatal":
+            raise _fatal(e) from e
+        results[i] = e
 
 
-def _run_group_sync(idxs, key, dispatch, finish, host_one, results, counts,
-                    depth, max_resplits, backoff_s) -> None:
+def _host_replay_all(idxs, host_one, results, metrics, group,
+                     reason) -> None:
+    """The ladder bottom: replay each request on the per-hole path."""
+    for i in idxs:
+        metrics.bump(host_fallbacks=1)
+        _replay(i, host_one, results, group=group, reason=reason)
+
+
+def _out_shape_tag(out) -> str:
+    """Shape signature of a step's output: the materialize span's key for
+    the watchdog's first-of-shape grace (as in the JAX package)."""
+    return "x".join(str(d) for d in out.shape)
+
+
+def _materialize(out, group: str, n: int) -> np.ndarray:
+    """The device-to-host read of a step's output, in a watchdog-visible
+    device span (attribute=False: a wait, never in the group table).  An
+    untraced step's span closes once its launches are queued, so a hung
+    kernel surfaces here, where the host blocks."""
+    with trace.device_span("materialize", group=group,
+                           shape=_out_shape_tag(out), attribute=False, n=n):
+        return out.cpu().numpy()
+
+
+def _run_group_sync(idxs, key, dispatch, finish, host_one, results, metrics,
+                    depth, max_resplits, backoff_s, label=str) -> None:
     """Dispatch and finish one (sub)group, recovering from failures."""
     try:
-        finish(idxs, key, dispatch(idxs, key))
+        out = dispatch(idxs, key)
+        finish(idxs, key, _materialize(out, label(key), len(idxs)))
     except Exception as e:
         _recover_group(e, idxs, key, dispatch, finish, host_one, results,
-                       counts, depth, max_resplits, backoff_s)
+                       metrics, depth, max_resplits, backoff_s, label)
 
 
 def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
-                   counts, depth, max_resplits, backoff_s) -> None:
+                   metrics, depth, max_resplits, backoff_s,
+                   label=str) -> None:
     """The recovery ladder for one failed group.
 
     fatal -> re-raised as cuda_ext.KernelError: the run ends
@@ -138,10 +170,12 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
     data  -> replay each request on the per-hole path
     """
     kind = classify_failure(exc)
+    trace.instant("recover", cat="recover", kind=kind, group=label(key),
+                  n=len(idxs), depth=depth)
     if kind == "fatal":
         raise _fatal(exc) from exc
     if kind == "oom" and depth < max_resplits and len(idxs) > 1:
-        _bump(counts, oom_resplits=1)
+        metrics.bump(oom_resplits=1)
         print(f"[ccsx-tpu-torch] device OOM on a {len(idxs)}-request group "
               f"{key}: resplitting (depth {depth + 1}): {exc}",
               file=sys.stderr)
@@ -149,21 +183,24 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
         mid = (len(idxs) + 1) // 2
         for part in (idxs[:mid], idxs[mid:]):
             _run_group_sync(part, key, dispatch, finish, host_one, results,
-                            counts, depth + 1, max_resplits, backoff_s)
+                            metrics, depth + 1, max_resplits, backoff_s,
+                            label)
         return
-    _bump(counts, failed_steps=1)
+    metrics.bump(failed_steps=1)
     print(f"[ccsx-tpu-torch] device step failed ({kind}) for a "
           f"{len(idxs)}-request group {key}; replaying per request: {exc}",
           file=sys.stderr)
-    _host_replay_all(idxs, host_one, results, counts)
+    _host_replay_all(idxs, host_one, results, metrics, label(key), kind)
 
 
 def _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                           counts, max_resplits=3, backoff_s=0.05) -> None:
+                           metrics, max_resplits=3, backoff_s=0.05,
+                           label=str) -> None:
     """Dispatch every group's device work before finishing any (launches
     are asynchronous, so one group's device work overlaps the previous
     group's host side); a failure at either phase drops that one group
-    into the recovery ladder."""
+    into the recovery ladder.  ``label`` maps a group key to its trace
+    group (the dispatch span's, without a slab ordinal)."""
     pending = []
     for key, idxs in groups.items():
         try:
@@ -174,10 +211,11 @@ def _run_groups_recovering(groups, dispatch, finish, host_one, results,
         try:
             if exc is not None:
                 raise exc
-            finish(idxs, key, out)
+            finish(idxs, key, _materialize(out, label(key), len(idxs)))
         except Exception as e:
             _recover_group(e, idxs, key, dispatch, finish, host_one,
-                           results, counts, 0, max_resplits, backoff_s)
+                           results, metrics, 0, max_resplits, backoff_s,
+                           label)
 
 
 def _fused_tmax(tlen: int, quant: int) -> int:
@@ -622,12 +660,12 @@ class PairExecutor:
     seed_cache_max = 128
 
     def __init__(self, params: AlignParams, quant: int = 512,
-                 device="cuda", counts: Optional[dict] = None,
+                 device="cuda", metrics: Optional[RunMetrics] = None,
                  prefilter: bool = True, seed_device_min_t: int = 16384):
         self.params = params
         self.quant = quant
         self.device = torch.device(device)
-        self.counts = counts if counts is not None else {}
+        self.metrics = metrics if metrics is not None else RunMetrics()
         self.prefilter = bool(prefilter)
         self.seed_device_min_t = max(0, int(seed_device_min_t))
         # the device screen's floor; below it the rules ride the seed
@@ -720,22 +758,29 @@ class PairExecutor:
         rejected pairs get their final (False, empty) result.  Returns the
         number rejected."""
         triples: List = [None] * len(pairs)
+        groups = self._groups(pairs, idxs)
+
+        def label(key):
+            return f"sketch:q{key[0]}:t{key[1]}"
 
         def dispatch(gidxs, key):
-            _bump(self.counts, screen_steps=1)
-            return sketch.screen_step(*key)(*self._pad_pair(pairs, gidxs,
-                                                            key))
+            args = self._pad_pair(pairs, gidxs, key)
+            self.metrics.bump(screen_steps=1)
+            with trace.device_span("sketch_screen", group=label(key),
+                                   shape=f"N{len(gidxs)}",
+                                   n=len(gidxs)) as sp:
+                return sp.force(sketch.screen_step(*key)(*args))
 
         def finish(gidxs, key, out):
-            out = out.cpu()
             for z, i in enumerate(gidxs):
                 triples[i] = tuple(int(v) for v in out[z])
 
         def host_one(i):
             return sketch.screen_host(pairs[i].q, pairs[i].t)
 
-        _run_groups_recovering(self._groups(pairs, idxs), dispatch, finish,
-                               host_one, triples, self.counts)
+        self.metrics.bump(device_dispatches=len(groups))
+        _run_groups_recovering(groups, dispatch, finish, host_one, triples,
+                               self.metrics, label=label)
         rejected = 0
         for i in idxs:
             tr = triples[i]
@@ -754,14 +799,20 @@ class PairExecutor:
         gives.  A pair whose seed failed on both rungs carries its
         Exception into ``results`` (its hole is quarantined)."""
         rows: List = [None] * len(pairs)
+        groups = self._groups(pairs, idxs)
+
+        def label(key):
+            return f"seed:q{key[0]}:t{key[1]}"
 
         def dispatch(gidxs, key):
-            _bump(self.counts, seed_steps=1)
-            return seed_device.seed_step(*key)(*self._pad_pair(pairs, gidxs,
-                                                               key))
+            args = self._pad_pair(pairs, gidxs, key)
+            self.metrics.bump(seed_steps=1)
+            with trace.device_span("seed_device", group=label(key),
+                                   shape=f"N{len(gidxs)}",
+                                   n=len(gidxs)) as sp:
+                return sp.force(seed_device.seed_step(*key)(*args))
 
         def finish(gidxs, key, out):
-            out = out.cpu()
             for z, i in enumerate(gidxs):
                 rows[i] = [int(v) for v in out[z]]
 
@@ -771,8 +822,9 @@ class PairExecutor:
                 return [0] * 8
             return [1, hit.diag, hit.votes, *(int(v) for v in hit.line), 0]
 
-        _run_groups_recovering(self._groups(pairs, idxs), dispatch, finish,
-                               host_one, rows, self.counts)
+        self.metrics.bump(device_dispatches=len(groups))
+        _run_groups_recovering(groups, dispatch, finish, host_one, rows,
+                               self.metrics, label=label)
         for i in idxs:
             r = rows[i]
             if isinstance(r, Exception):
@@ -801,7 +853,8 @@ class PairExecutor:
                       if self._screens(pr) and not self._seeds_on_device(pr)]
         rejected = 0
         if screen_ids:
-            rejected = self._screen_wave(pairs, screen_ids, results)
+            with trace.span("prefilter", cat="prep", n=len(screen_ids)):
+                rejected = self._screen_wave(pairs, screen_ids, results)
 
         # stage 2: seeding for the survivors, on the device for long
         # templates and by the cached host sort-join below that
@@ -846,10 +899,22 @@ class PairExecutor:
                 lines[i] = np.array([0, 0, len(pr.q), len(pr.t)], np.int32)
             fill_ids.append(i)
         groups = self._groups(pairs, fill_ids)
-        _bump(self.counts, pair_fills=len(groups), pairs=len(lines),
-              pairs_seeded_device=len(dev_ids),
-              pairs_seeded_host=len(host_ids), pairs_screened=screened,
-              pairs_prefiltered=rejected)
+        # dp_cells_padded counts the N rows dispatched; the JAX package pads
+        # N to a power of two (_z_bucket), the port does not
+        padded = real = 0
+        for (qmax, tmax), idxs in groups.items():
+            padded += len(idxs) * qmax * band
+            real += band * sum(len(pairs[i].q) for i in idxs)
+        self.metrics.bump(pair_fills=len(groups), pair_alignments=len(lines),
+                          device_dispatches=len(groups),
+                          pairs_seeded_device=len(dev_ids),
+                          pairs_seeded_host=len(host_ids),
+                          pairs_screened=screened,
+                          pairs_prefiltered=rejected,
+                          dp_cells_padded=padded, dp_cells_real=real)
+
+        def label(key):
+            return f"pair:q{key[0]}:t{key[1]}"
 
         def dispatch(idxs, key):
             qmax, tmax = key
@@ -861,11 +926,14 @@ class PairExecutor:
                 small[z, 0] = len(pairs[i].q)
                 small[z, 1] = len(pairs[i].t)
                 small[z, 2:6] = lines[i]
-            return _pair_fill_packed(self.params, qmax, tmax,
-                                     self.device)(big, small)
+            step = _pair_fill_packed(self.params, qmax, tmax, self.device)
+            N = len(idxs)
+            with trace.device_span("pair_fill", group=label(key),
+                                   cells=N * qmax * band, shape=f"N{N}",
+                                   n=N) as sp:
+                return sp.force(step(big, small))
 
         def finish(idxs, key, res):
-            res = res.cpu().numpy()
             for z, i in enumerate(idxs):
                 score, qb, qe, tb, te, aln, mat = (int(v) for v in res[z])
                 pr = pairs[i]
@@ -883,7 +951,7 @@ class PairExecutor:
             return self._host_aligner.strand_match(pr.q, pr.t, pr.pct)
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                               self.counts)
+                               self.metrics, label=label)
         return results
 
 
@@ -913,11 +981,17 @@ class BatchExecutor:
     oom_backoff_s = 0.05
 
     def __init__(self, cfg: CcsConfig, device="cuda",
-                 counts: Optional[dict] = None):
+                 metrics: Optional[RunMetrics] = None):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.counts = counts if counts is not None else {}
+        self.metrics = metrics if metrics is not None else RunMetrics()
         self.len_quant = cfg.len_bucket_quant
+        # the JAX package's arm name, for the trace groups' :b<impl> and
+        # banded_dispatches, so both packages' group tables line up:
+        # 'scan' (the default) and 'pallas' launch the band-local kernel
+        # (csrc/banded_fill.cu), 'rotband' the rotating-band kernel
+        # (csrc/banded_rotband.cu)
+        self.bimpl = cfg.banded_impl or "scan"
         self._sm = StarMsa(cfg.align, cfg.max_ins_per_col,
                            cfg.len_bucket_quant, self.device,
                            cfg.banded_impl)
@@ -926,6 +1000,41 @@ class BatchExecutor:
         # one device: the JAX package's rule (pass_packing, and --mesh is
         # ignored on a single device) reduces to the flag
         self.packing = bool(cfg.pass_packing)
+
+    def _count_cells(self, reqs, idxs, P, qmax, Z, iters: int = 1):
+        """Padding accounting of a bucketed group (metrics.dp_cells_*):
+        real DP fill cells (true qlen of real pass-rows) against dispatched
+        cells (the Z x P x qmax x band x iters block), and the round-only
+        counters in cell units, as the JAX package's _count_cells."""
+        band = self.cfg.align.band
+        padded = Z * P * qmax * band * iters
+        real = band * iters * int(
+            sum(int(reqs[i].qlens[reqs[i].row_mask].sum()) for i in idxs))
+        rows_real = int(sum(int(reqs[i].row_mask.sum()) for i in idxs))
+        scale = qmax * band * iters
+        self.metrics.bump(dp_cells_padded=padded, dp_cells_real=real,
+                          dp_round_cells_padded=padded,
+                          dp_round_cells_real=real,
+                          dp_rowcells_real=rows_real * scale,
+                          dp_rowcells_cap=len(idxs) * P * scale)
+
+    def _count_cells_packed(self, reqs, idxs, qmax: int, R: int,
+                            iters: int):
+        """Padding accounting of one packed slab (no Z axis: its z_fill is
+        1 and the row fill carries the story), as the JAX package's
+        _count_cells_packed."""
+        band = self.cfg.align.band
+        scale = qmax * band * iters
+        rows_real = int(sum(int(reqs[i].row_mask.sum()) for i in idxs))
+        real = band * iters * int(
+            sum(int(reqs[i].qlens[reqs[i].row_mask].sum()) for i in idxs))
+        self.metrics.bump(dp_cells_padded=R * scale, dp_cells_real=real,
+                          dp_round_cells_padded=R * scale,
+                          dp_round_cells_real=real,
+                          dp_rowcells_real=rows_real * scale,
+                          dp_rowcells_cap=R * scale,
+                          dp_rows_real=rows_real, dp_rows_dispatched=R,
+                          packed_dispatches=1, packed_holes=len(idxs))
 
     def _bp_consts(self):
         cfg = self.cfg
@@ -1014,21 +1123,34 @@ class BatchExecutor:
             groups[(P, qmax, bucket_len(len(req.draft), self.len_quant))
                    ].append(i)
         results: List[object] = [None] * len(requests)
-        _bump(self.counts, round_groups=len(groups))
+        # bare rounds count as dispatches only ('windows' counts refines)
+        self.metrics.bump(round_groups=len(groups),
+                          device_dispatches=len(groups))
+        for (P, qmax, _), idxs in groups.items():
+            self._count_cells(requests, idxs, P, qmax, len(idxs))
         pin = self.device.type == "cuda"
+
+        def label(key):
+            return f"round:P{key[0]}:q{key[1]}:t{key[2]}:b{self.bimpl}"
 
         def dispatch(idxs, key):
             P, qmax, tmax = key
+            Z = len(idxs)
             buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
                                                tmax), pin=pin)
             step = _round_step(cfg.align, M, tmax, self._bp_consts(),
                                (P, qmax), cfg.banded_impl)
-            _bump(self.counts, bucketed_dispatches=1)
-            return step(buf.to(self.device, non_blocking=pin))
+            self.metrics.bump(bucketed_dispatches=1)
+            self.metrics.bump_banded(self.bimpl)
+            with trace.device_span(
+                    "round", group=label(key),
+                    cells=Z * P * qmax * cfg.align.band, shape=f"Z{Z}",
+                    n=Z, Z=Z) as sp:
+                return sp.force(step(buf.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
             cons, ins_base, ins_votes, ncov, nwin, bp, advance = \
-                _unpack_round(out.cpu().numpy(), M, key[2])
+                _unpack_round(out, M, key[2])
             for z, i in enumerate(idxs):
                 results[i] = RoundResult(
                     cons=cons[z], ins_base=ins_base[z],
@@ -1041,8 +1163,8 @@ class BatchExecutor:
             return self._sm.round(req.qs, req.qlens, req.row_mask, req.draft)
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                               self.counts, self.max_oom_resplits,
-                               self.oom_backoff_s)
+                               self.metrics, self.max_oom_resplits,
+                               self.oom_backoff_s, label)
         return results
 
     def _run_refine(self, requests: List[RefineRequest]) -> list:
@@ -1060,8 +1182,15 @@ class BatchExecutor:
             groups[(P, qmax, _fused_tmax(len(req.draft), self.len_quant),
                     req.iters)].append(i)
         results: List[object] = [None] * len(requests)
-        _bump(self.counts, windows=len(requests), bucketed_groups=len(groups))
+        self.metrics.bump(windows=len(requests), bucketed_groups=len(groups),
+                          device_dispatches=len(groups))
+        for (P, qmax, _, iters), idxs in groups.items():
+            self._count_cells(requests, idxs, P, qmax, len(idxs), iters)
         pin = self.device.type == "cuda"
+
+        def label(key):
+            return (f"refine:P{key[0]}:q{key[1]}:t{key[2]}:i{key[3]}"
+                    f":b{self.bimpl}")
 
         def host_one(i):
             req = requests[i]
@@ -1070,21 +1199,27 @@ class BatchExecutor:
 
         def dispatch(idxs, key):
             P, qmax, tmax, iters = key
+            Z = len(idxs)
             buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
                                                tmax), pin=pin)
             step = _refine_step(cfg.align, M, tmax, iters,
                                 self._bp_consts(), (P, qmax),
                                 cfg.banded_impl)
-            _bump(self.counts, bucketed_dispatches=1)
-            return step(buf.to(self.device, non_blocking=pin))
+            self.metrics.bump(bucketed_dispatches=1)
+            self.metrics.bump_banded(self.bimpl)
+            with trace.device_span(
+                    "refine", group=label(key),
+                    cells=Z * P * qmax * cfg.align.band * iters,
+                    shape=f"Z{Z}", n=Z, Z=Z) as sp:
+                return sp.force(step(buf.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
             (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
-             ovf) = _unpack_refine(out.cpu().numpy(), M, key[2])
+             ovf) = _unpack_refine(out, M, key[2])
             for z, i in enumerate(idxs):
                 if ovf[z]:
-                    _bump(self.counts, refine_overflows=1)
-                    _host_replay_all([i], host_one, results, self.counts)
+                    self.metrics.bump(refine_overflows=1)
+                    _replay(i, host_one, results, reason="refine_overflow")
                     continue
                 results[i] = RefineResult(rr=RoundResult(
                     cons=cons[z], ins_base=ins_base[z],
@@ -1092,8 +1227,8 @@ class BatchExecutor:
                     tlen=int(dlen[z]), bp=int(bp[z]), advance=advance[z]))
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                               self.counts, self.max_oom_resplits,
-                               self.oom_backoff_s)
+                               self.metrics, self.max_oom_resplits,
+                               self.oom_backoff_s, label)
         return results
 
     def _run_refine_packed(self, requests: List[RefineRequest]) -> list:
@@ -1102,7 +1237,7 @@ class BatchExecutor:
         M = cfg.max_ins_per_col
         nrows = [int(r.row_mask.sum()) for r in requests]
         results: List[object] = [None] * len(requests)
-        _bump(self.counts, windows=len(requests))
+        self.metrics.bump(windows=len(requests))
 
         def host_one(i):
             req = requests[i]
@@ -1114,7 +1249,8 @@ class BatchExecutor:
             if nrows[i] == 0:
                 # no live pass-rows (the windowed driver never makes one):
                 # nothing to pack, the per-hole path is its spec
-                _host_replay_all([i], host_one, results, self.counts)
+                self.metrics.bump(host_fallbacks=1)
+                _replay(i, host_one, results, reason="no_rows")
                 continue
             tmax = _fused_tmax(len(req.draft), self.len_quant)
             shape_groups[(req.qs.shape[1], tmax, req.iters)].append(i)
@@ -1123,9 +1259,19 @@ class BatchExecutor:
         for key, idxs in shape_groups.items():
             for s_no, slab in enumerate(pack_mod.plan_slabs(
                     [nrows[i] for i in idxs], self.slab_rows)):
-                groups[key + (s_no,)] = [idxs[j] for j in slab]
-        _bump(self.counts, slabs=len(groups))
+                sl_idxs = [idxs[j] for j in slab]
+                groups[key + (s_no,)] = sl_idxs
+                R, _ = pack_mod.slab_shape([nrows[i] for i in sl_idxs],
+                                           self.slab_rows,
+                                           ladder=self.slab_ladder)
+                self._count_cells_packed(requests, sl_idxs, key[0], R,
+                                         key[2])
+        self.metrics.bump(slabs=len(groups), device_dispatches=len(groups))
         pin = self.device.type == "cuda"
+
+        def label(key):
+            # the shape group, without the slab ordinal key[3]
+            return f"packed:q{key[0]}:t{key[1]}:i{key[2]}:b{self.bimpl}"
 
         def dispatch(idxs, key):
             qmax, tmax, iters, _ = key
@@ -1135,8 +1281,16 @@ class BatchExecutor:
             step = _refine_step_packed(cfg.align, M, tmax, iters, H,
                                        self._bp_consts(), (R, qmax),
                                        cfg.banded_impl)
-            return step(big.to(self.device, non_blocking=pin),
-                        small.to(self.device, non_blocking=pin))
+            self.metrics.bump_banded(self.bimpl)
+            with trace.device_span(
+                    "refine_packed", group=label(key),
+                    cells=R * qmax * cfg.align.band * iters,
+                    shape=f"R{R}:S{H}",
+                    plan={"slab": key[3], "rows": R,
+                          "holes": len(idxs)}) as sp:
+                return sp.force(step(
+                    big.to(self.device, non_blocking=pin),
+                    small.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
             _, tmax, _, _ = key
@@ -1144,15 +1298,15 @@ class BatchExecutor:
                                        self.slab_rows,
                                        ladder=self.slab_ladder)
             (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
-             ovf) = _unpack_slab_refine(out.cpu().numpy(), M, tmax, H, R)
+             ovf) = _unpack_slab_refine(out, M, tmax, H, R)
             r0 = 0
             for s, i in enumerate(idxs):
                 req = requests[i]
                 rows = slice(r0, r0 + nrows[i])
                 r0 += nrows[i]
                 if ovf[s]:
-                    _bump(self.counts, refine_overflows=1)
-                    _host_replay_all([i], host_one, results, self.counts)
+                    self.metrics.bump(refine_overflows=1)
+                    _replay(i, host_one, results, reason="refine_overflow")
                     continue
                 # row advances back into the request's (P,) pass order;
                 # masked pass rows consumed nothing
@@ -1164,8 +1318,8 @@ class BatchExecutor:
                     tlen=int(dlen[s]), bp=int(bp[s]), advance=adv))
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                               self.counts, self.max_oom_resplits,
-                               self.oom_backoff_s)
+                               self.metrics, self.max_oom_resplits,
+                               self.oom_backoff_s, label)
         return results
 
 
@@ -1236,7 +1390,7 @@ def _grow_window(window: int, cap: int, growth: int) -> int:
 
 
 def drive_batched(stream, writer, cfg: CcsConfig, device,
-                  counts: dict, inflight: Optional[int] = None) -> None:
+                  metrics: RunMetrics, inflight: Optional[int] = None) -> None:
     """The batched scheduler over an open ZMW stream and writer.
 
     Admits holes into a window, runs one pair sweep and one refine sweep
@@ -1247,16 +1401,19 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     to cfg.zmw_microbatch.  Holes in flight plus holes waiting for ordered
     emission stay within 4x the cap.
 
-    Counters go into ``counts`` ('in', 'out', 'failed', 'windows', ...).
-    A kernel or card fault raises cuda_ext.KernelError out of here."""
+    Counters, stage timers and progress events go into ``metrics``; the
+    spans into the installed tracer (the caller's, utils/trace.py).  A
+    kernel or card fault raises cuda_ext.KernelError out of here, and a
+    count-form --max-failed-holes exceeded at a failed hole raises
+    FailureBudgetExceeded."""
     explicit_window = inflight is not None and int(inflight) > 0
     cap = max(1, int(inflight) if explicit_window
               else int(cfg.zmw_microbatch))
     growth = max(2, int(cfg.chunk_growth))
     window = cap if explicit_window else max(1, cap // (growth * growth))
-    executor = BatchExecutor(cfg, device, counts)
+    executor = BatchExecutor(cfg, device, metrics)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
-                                 device=device, counts=counts,
+                                 device=device, metrics=metrics,
                                  prefilter=cfg.prefilter,
                                  seed_device_min_t=cfg.seed_device_min_t)
     active: List[_Hole] = []
@@ -1270,26 +1427,36 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         while next_emit in finished:
             h = finished.pop(next_emit)
             if h.err is not None:
-                counts["failed"] += 1
+                metrics.holes_failed += 1
                 print(f"[ccsx-tpu-torch] hole {h.zmw.movie}/{h.zmw.hole} "
                       f"failed: {h.err}", file=sys.stderr)
+                # a count budget aborts here, a fraction at end of run
+                check_failure_budget(metrics, cfg)
             elif h.cns is not None and h.cns[0]:
-                writer.put(f"{h.zmw.movie}/{h.zmw.hole}/ccs", *h.cns)
-                counts["out"] += 1
+                with metrics.timer("write"), \
+                        trace.span("write_record", cat="write"):
+                    writer.put(f"{h.zmw.movie}/{h.zmw.hole}/ccs", *h.cns)
+                metrics.holes_out += 1
+            metrics.tick()
             next_emit += 1
 
     while True:
         while (not exhausted and len(active) < window
                and next_idx - next_emit < 4 * cap):
             try:
-                z = next(stream)
+                with metrics.timer("ingest"), \
+                        trace.span("ingest_hole", cat="ingest"):
+                    z = next(stream)
             except StopIteration:
                 exhausted = True
                 break
-            counts["in"] += 1
+            metrics.holes_in += 1
             h = _Hole(idx=next_idx, zmw=z)
             next_idx += 1
-            _start_hole(h, cfg)
+            # inline prep is all critical path: its own stage and blocked
+            with metrics.timer("prep"), metrics.timer("prep_blocked"), \
+                    trace.span("prep_hole", cat="prep", hole=str(z.hole)):
+                _start_hole(h, cfg)
             if h.done:
                 finished[h.idx] = h
             else:
@@ -1306,13 +1473,18 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         pair_holes = [h for h, p in zip(active, is_pair) if p]
         round_holes = [h for h, p in zip(active, is_pair) if not p]
         if pair_holes:
-            for h, r in zip(pair_holes,
-                            pair_executor.run([h.req for h in pair_holes])):
-                _feed_hole(h, r)
+            with metrics.timer("prep"), metrics.timer("prep_blocked"), \
+                    trace.span("pair_sweep", cat="prep", n=len(pair_holes)):
+                for h, r in zip(pair_holes, pair_executor.run(
+                        [h.req for h in pair_holes])):
+                    _feed_hole(h, r)
         if round_holes:
-            for h, rr in zip(round_holes,
-                             executor.run([h.req for h in round_holes])):
-                _feed_hole(h, rr)
+            with metrics.timer("compute"), \
+                    trace.span("refine_sweep", cat="compute",
+                               n=len(round_holes)):
+                for h, rr in zip(round_holes, executor.run(
+                        [h.req for h in round_holes])):
+                    _feed_hole(h, rr)
         still: List[_Hole] = []
         for h in active:
             if h.done:
@@ -1323,4 +1495,5 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         emit_ready()
         if not explicit_window and admitted_full and window < cap:
             window = _grow_window(window, cap, growth)
-
+        # interval-driven progress events while nothing has retired yet
+        metrics.heartbeat()

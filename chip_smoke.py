@@ -61,7 +61,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    arm's recorded group with the longest query (50 kb rows, the body with
    unpacked statistics); then the default and the screen arm once more under
    torch.profiler, for the device time of the seed and screen steps (each
-   call in a profiler range of its own) and the arms' device busy time.
+   call in a profiler range of its own) and the arms' device busy time;
+7. the flight recorder: the scale corpus through the default arm four
+   times under ``--metrics`` alone and four times under ``--trace
+   --metrics``, in turns.  Each traced run must keep the pinned md5, end
+   with a final metrics event with no stall, forced groups and the card
+   memory the run holds, and show one ``refine_packed`` span a slab, one
+   ``pair_fill`` span a local-fill launch, and as many global-fill and
+   walk launches as the slabs ran rounds; the ``stats`` subcommand
+   summarizes the first one's files, and every run's host time is split by
+   stage (its final event's stage timers).  Then the stall watchdog on a
+   blocked CUDA wait (a kernel spinning for about 2 s inside a device span,
+   a 0.5 s stall timeout: it must fire exactly once, while the host thread
+   is blocked in the synchronise), a run with ``CCSX_BLACKBOX`` set whose
+   ring the ``blackbox`` subcommand reads back in a process that cannot
+   import torch (nothing in flight), and a run under ``--profile DIR``,
+   whose Chrome trace must name the global fill, local fill and walk
+   kernels.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -94,9 +110,9 @@ SCALE64_BYTES = 188359
 LONG_FLAGS = ["-A", "-m", "1000", "-M", "4000000", "--batch", "on",
               "--slab-rows", "32"]
 LONG_MD5 = "1c9d8a68d1245c2b1c30becaa18a1f50"
-LONG_COUNTS = {"pairs": 28, "pairs_screened": 55, "pairs_prefiltered": 27,
-               "pairs_seeded_device": 56, "pairs_seeded_host": 0,
-               "windows": 99}
+LONG_COUNTS = {"pair_alignments": 28, "pairs_screened": 55,
+               "pairs_prefiltered": 27, "pairs_seeded_device": 56,
+               "pairs_seeded_host": 0, "windows": 99}
 LONG_ARMS = {"default": [], "screen": ["--seed-device-min-t", "0"],
              "host": ["--prefilter", "off", "--seed-device-min-t", "0"]}
 BUCKETS = ["--pass-buckets", "4,8,16,32"]
@@ -740,9 +756,13 @@ def time_one_parent_rotband(dev, args, run_rot, reps, src, k):
 def run_cli(argv, what, record=None):
     """cli.main(argv) under -v with its stderr captured (echoed without the
     per-hole segment dump); returns (seconds, launch counts reset just
-    before, the driver's counters from -v's last stderr line).  A
-    ``record`` list receives a copy of the inputs of every local-fill
-    launch of the run (its groups of strand-walk pairs)."""
+    before, the driver's counters).  The counters are the run's final
+    metrics snapshot (utils/metrics.py), which -v prints as the last stderr
+    line, ``[ccsx-tpu-torch] {json}``: the JAX package's keys
+    (``holes_out``, ``pair_alignments``, ``host_fallbacks``, ...) and the
+    port's own (``slabs``, ``failed_steps``, ...).  A ``record`` list
+    receives a copy of the inputs of every local-fill launch of the run
+    (its groups of strand-walk pairs)."""
     import contextlib
     import io
 
@@ -773,10 +793,12 @@ def run_cli(argv, what, record=None):
     if "device step failed" in text:
         raise AssertionError(f"CLI {what}: a device step failed over to its "
                              "per-request replay")
-    last = text.strip().splitlines()[-1]
-    driver = {k: int(v) for k, v in (kv.split("=", 1) for kv in last.split()
-                                     if "=" in kv) if v.isdigit()}
-    if driver.get("failed_steps") or driver.get("host_replays"):
+    prefix, snap = text.strip().splitlines()[-1].split(" ", 1)
+    if prefix != "[ccsx-tpu-torch]":
+        raise AssertionError(f"CLI {what}: no metrics snapshot on the last "
+                             "stderr line")
+    driver = json.loads(snap)
+    if driver["failed_steps"] or driver["host_fallbacks"]:
         raise AssertionError(f"CLI {what}: device steps failed over to their "
                              f"replay: {driver}")
     return secs, counts, driver
@@ -799,7 +821,7 @@ def phase_scale64(device, extra=(), n_holes=64, record=None):
     data = open(out, "rb").read()
     md5 = hashlib.md5(data).hexdigest()
     grouping = {k: driver[k] for k in ("slabs", "bucketed_groups",
-                                       "bucketed_dispatches") if k in driver}
+                                       "bucketed_dispatches")}
     print(f"[chip_smoke] scale corpus {list(extra) or 'default'}: {n_holes} "
           f"holes in {secs:.3f}s ({n_holes / secs:.2f} holes/s), "
           f"{len(data)} bytes, md5 {md5}, launches {counts}, grouping "
@@ -809,8 +831,8 @@ def phase_scale64(device, extra=(), n_holes=64, record=None):
                              f"pinned {SCALE64_MD5}/{SCALE64_BYTES}")
     bucketed = "--pass-buckets" in extra
     if "--batch" not in extra and (
-            bool(driver.get("slabs")) == bucketed
-            or bool(driver.get("bucketed_groups")) != bucketed):
+            bool(driver["slabs"]) == bucketed
+            or bool(driver["bucketed_groups"]) != bucketed):
         raise AssertionError(f"CLI {list(extra)}: the wrong grouping ran "
                              f"({grouping})")
     return secs, counts, driver
@@ -1009,10 +1031,10 @@ def phase_long(device):
             f"{extra} on the long-molecule corpus",
             groups if arm == "default" else None)
         md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
-        keys = ("pairs", "pairs_screened", "pairs_prefiltered",
+        keys = ("pair_alignments", "pairs_screened", "pairs_prefiltered",
                 "pairs_seeded_device", "pairs_seeded_host", "screen_steps",
-                "seed_steps", "pair_fills", "windows", "slabs", "out")
-        counters = {k: driver.get(k, 0) for k in keys}
+                "seed_steps", "pair_fills", "windows", "slabs", "holes_out")
+        counters = {k: driver[k] for k in keys}
         arms[arm] = {"seconds": secs, "md5": md5, "counters": counters,
                      "launches": launches}
         print(f"[chip_smoke] long-molecule {arm} {extra}: {secs:.3f}s, md5 "
@@ -1081,6 +1103,287 @@ def check_local_group(groups):
                              f"the long-molecule group: {kl.tolist()} vs "
                              f"{pl.tolist()}")
     return rec
+
+
+def count_rounds(rounds):
+    """Wraps pipeline.batch._refine_loop so that each refine step appends
+    the rounds it ran (one global fill and one walk launch each) to
+    ``rounds``; returns the undo."""
+    from ccsx_tpu_torch.pipeline import batch
+
+    real = batch._refine_loop
+
+    def counting(one_round, *a, **k):
+        n = [0]
+
+        def counted(draft, dlen):
+            n[0] += 1
+            return one_round(draft, dlen)
+        try:
+            return real(counted, *a, **k)
+        finally:
+            rounds.append(n[0])
+
+    batch._refine_loop = counting
+    return lambda: setattr(batch, "_refine_loop", real)
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def traced_scale64(device, tag):
+    """The scale corpus through the default arm under --trace and --metrics:
+    the pinned md5; the final metrics event with no stall, forced groups
+    and the card's allocated bytes; one refine_packed span a slab, one
+    pair_fill span a local-fill launch, and global-fill and walk launches
+    equal to the rounds the slabs ran.  Returns (seconds, record)."""
+    from ccsx_tpu_torch.utils import trace
+
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, f"rec_{tag}.fa")
+    t = os.path.join(WORK, f"rec_{tag}_trace.jsonl")
+    m = os.path.join(WORK, f"rec_{tag}_metrics.jsonl")
+    rounds = []
+    undo = count_rounds(rounds)
+    try:
+        secs, launches, driver = run_cli(
+            ["--device", device, "--trace", t, "--metrics", m, bam, out],
+            f"traced ({tag}) on the scale corpus")
+    finally:
+        undo()
+    md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
+    if md5 != SCALE64_MD5:
+        raise AssertionError(f"traced scale corpus md5 {md5} != pinned")
+    finals = [e for e in read_jsonl(m) if e["event"] == "final"]
+    if len(finals) != 1:
+        raise AssertionError(f"{len(finals)} final metrics events")
+    fin = finals[0]
+    spans = [r for r in read_jsonl(t) if r.get("ev") == "span"
+             and r["cat"] == "device" and not r.get("args", {}).get("error")]
+    n_packed = sum(r["name"] == "refine_packed" for r in spans)
+    n_pair = sum(r["name"] == "pair_fill" for r in spans)
+    checks = {
+        "stalls == 0": fin["stalls"] == 0,
+        "groups_forced": fin["groups_forced"] is True,
+        "device_buffer_bytes > 0": fin["device_buffer_bytes"] > 0,
+        "refine_packed spans == slabs == refine steps":
+            n_packed == fin["slabs"] == len(rounds) > 0,
+        "pair_fill spans == local-fill launches":
+            n_pair == launches["banded_local"] > 0,
+        "global-fill and walk launches == rounds":
+            launches["banded_global"] == launches["traceback_walk"]
+            == sum(rounds),
+    }
+    rec = {"seconds": secs, "slabs": fin["slabs"],
+           "refine_packed_spans": n_packed, "rounds": sum(rounds),
+           "pair_fill_spans": n_pair, "launches": launches,
+           "stalls": fin["stalls"],
+           "device_buffer_bytes": fin["device_buffer_bytes"],
+           "trace": t, "metrics": m, "final": fin}
+    print(f"[chip_smoke] traced scale corpus ({tag}): {secs:.3f}s, md5 "
+          f"{md5}, {n_packed} refine_packed spans, {fin['slabs']} slabs, "
+          f"{sum(rounds)} rounds, {n_pair} pair_fill spans, launches "
+          f"{launches}, stalls {fin['stalls']}, device_buffer_bytes "
+          f"{fin['device_buffer_bytes']}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"traced scale corpus ({tag}): {failed}")
+    return secs, rec
+
+
+def stage_split(fin):
+    """The host-time split of one run from its final metrics event: the
+    stage seconds, the steady-state and first-launch device seconds of the
+    group table, and the share of the wall that no stage accounts for."""
+    stages = {k: fin[k] for k in ("ingest_s", "prep_s", "compute_s",
+                                  "write_s")}
+    wall = fin["elapsed_s"]
+    groups = fin.get("groups", {})
+    return {**stages, "prep_blocked_s": fin["prep_blocked_s"],
+            "elapsed_s": wall, "groups_forced": fin.get("groups_forced"),
+            "execute_s": sum(g["execute_s"] for g in groups.values()),
+            "first_launch_s": sum(g["compile_s"] for g in groups.values()),
+            "unaccounted_share": 1 - sum(stages.values()) / wall}
+
+
+def watchdog_on_card(seconds=2.0, stall_timeout=0.5):
+    """A device span whose CUDA wait blocks the host for ``seconds`` (a
+    spinning kernel, then a synchronise): the stall watchdog must fire
+    exactly once while the host thread is still blocked in that wait, and
+    its stack dump must show the thread there.  A first short span of the
+    same group takes the first-of-shape grace."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ccsx_tpu_torch.utils import trace
+    from ccsx_tpu_torch.utils.run_metrics import RunMetrics
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    probe = int(2e7)
+    a.record()
+    torch.cuda._sleep(probe)
+    b.record()
+    torch.cuda.synchronize()
+    cycles = int(probe * seconds * 1e3 / a.elapsed_time(b))
+    path = os.path.join(WORK, "watchdog_trace.jsonl")
+    m = RunMetrics()
+    err = io.StringIO()
+    tr = trace.Tracer(path, stall_timeout=stall_timeout, metrics=m)
+    try:
+        with tr.device_span("spin", group="spin"):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        with contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            with tr.device_span("spin", group="spin"):
+                torch.cuda._sleep(cycles)
+                torch.cuda.synchronize()
+            wait_s = time.perf_counter() - t0
+    finally:
+        tr.close()
+    stalls = [r for r in read_jsonl(path) if r.get("ev") == "stall"]
+    main_stack = "".join(v for k, v in (stalls[0]["stacks"] if stalls
+                                        else {}).items()
+                         if k.startswith("MainThread"))
+    rec = {"wait_s": wait_s, "stall_timeout_s": stall_timeout,
+           "stalls": m.stalls,
+           "fired_at_open_s": stalls[0]["open_s"] if stalls else None,
+           "main_thread_in_synchronize": "synchronize" in main_stack,
+           "degraded": m.degraded}
+    print(f"[chip_smoke] watchdog on a blocked CUDA wait: {rec}", flush=True)
+    if not (m.stalls == 1 and len(stalls) == 1
+            and rec["main_thread_in_synchronize"]
+            and stall_timeout <= stalls[0]["open_s"] < wait_s
+            and "STALL WATCHDOG" in err.getvalue()):
+        raise AssertionError("the stall watchdog did not fire exactly once "
+                             "while the host was blocked in the CUDA wait: "
+                             f"{rec}")
+    return rec
+
+
+def blackbox_run(device):
+    """The scale corpus with CCSX_BLACKBOX set, then the ``blackbox``
+    subcommand in a process that cannot import torch or jax: it reads the
+    ring back and shows nothing in flight after the clean exit."""
+    from ccsx_tpu_torch.utils import blackbox
+
+    bb_dir = os.path.join(WORK, "blackbox")
+    out = os.path.join(WORK, "bb.fa")
+    os.environ[blackbox.ENV_DIR] = bb_dir
+    blackbox.reset()
+    try:
+        secs, _, _ = run_cli(["--device", device,
+                              os.path.join(WORK, "in64.bam"), out],
+                             "under CCSX_BLACKBOX on the scale corpus")
+    finally:
+        os.environ.pop(blackbox.ENV_DIR, None)
+        blackbox.reset()
+    events = blackbox.read_dump(blackbox.box_path(bb_dir))
+    block = ("import sys\nfor m in ('torch', 'jax'):\n"
+             "    sys.modules[m] = None\n"
+             "from ccsx_tpu_torch import cli\n"
+             f"sys.exit(cli.main(['blackbox', {bb_dir!r}, '--tail', '3']))\n")
+    r = subprocess.run([sys.executable, "-c", block], cwd=HERE,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=HERE))
+    rec = {"seconds": secs, "events": len(events),
+           "inflight": len(blackbox.inflight(events)), "rc": r.returncode}
+    print(f"[chip_smoke] blackbox run of the scale corpus: {rec}; the "
+          "subcommand without torch or jax said:\n" + r.stdout.strip(),
+          flush=True)
+    if (r.returncode != 0 or not events or rec["inflight"]
+            or "-- nothing in flight --" not in r.stdout):
+        raise AssertionError(f"blackbox: {rec}\n{r.stderr}")
+    return rec
+
+
+def profile_flag_run(device):
+    """The scale corpus under the CLI's --profile DIR: the Chrome trace in
+    DIR must name the port's kernels among its CUDA kernel events."""
+    import glob
+
+    pdir = os.path.join(WORK, "profile")
+    shutil.rmtree(pdir, ignore_errors=True)
+    secs, launches, _ = run_cli(
+        ["--device", device, "--profile", pdir,
+         os.path.join(WORK, "in64.bam"), os.path.join(WORK, "prof.fa")],
+        "under --profile on the scale corpus")
+    files = glob.glob(os.path.join(pdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    want = ("global_fill_kernel", "local_fill_kernel", "walk_kernel")
+    named = {w: sum(w in k for k in kernels) > 0 for w in want}
+    rec = {"seconds": secs, "file_mb": os.path.getsize(files[0]) / 1e6,
+           "kernel_names": len(kernels), "named": named}
+    print(f"[chip_smoke] --profile run of the scale corpus: {rec}",
+          flush=True)
+    if not all(named.values()):
+        raise AssertionError(f"--profile trace lacks the port's kernels: "
+                             f"{rec}")
+    return rec
+
+
+def phase_recorder(device, untraced):
+    """Phase 7, the flight recorder on the card: the scale corpus through
+    the default arm untraced and traced in turns (U T T U U T T U), the
+    untraced runs under --metrics alone (its stage timers force nothing),
+    the traced ones under --trace --metrics (traced_scale64 checks each);
+    the stats subcommand over the first traced run's files; each run's
+    host-time split by stage; the watchdog on a blocked CUDA wait; a run
+    under CCSX_BLACKBOX read back by the blackbox subcommand; a run under
+    --profile.  ``untraced`` holds phase 4's warm walls of the default arm,
+    printed beside these."""
+    import contextlib
+    import io
+
+    from ccsx_tpu_torch import cli
+
+    runs = {"untraced": [], "traced": []}
+    for i, kind in enumerate("UTTUUTTU"):
+        if kind == "T":
+            secs, rec = traced_scale64(device, f"t{i}")
+            runs["traced"].append(rec)
+        else:
+            m = os.path.join(WORK, f"rec_u{i}_metrics.jsonl")
+            secs = phase_scale64(device, ["--metrics", m])[0]
+            runs["untraced"].append({"seconds": secs, "final": [
+                e for e in read_jsonl(m) if e["event"] == "final"][0]})
+    first = runs["traced"][0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["stats", first["trace"], first["metrics"]])
+    if rc != 0:
+        raise AssertionError(f"stats exited {rc}")
+    print("[chip_smoke] stats over the first traced run's trace and "
+          "metrics:\n" + buf.getvalue().rstrip(), flush=True)
+    walls = {k: [r["seconds"] for r in v] for k, v in runs.items()}
+    splits = {k: [stage_split(r["final"]) for r in v]
+              for k, v in runs.items()}
+    for kind, ss in splits.items():
+        for sp in ss:
+            print(f"[chip_smoke] host-time split, {kind} run: {sp}",
+                  flush=True)
+    print("[chip_smoke] scale corpus walls, default arm: traced "
+          + " / ".join(f"{w:.3f}" for w in walls["traced"]) + " s, untraced "
+          + " / ".join(f"{w:.3f}" for w in walls["untraced"])
+          + " s in turns; phase 4's untraced "
+          + " / ".join(f"{w:.3f}" for w in untraced) + " s", flush=True)
+    return {"walls": walls, "phase4_untraced": list(untraced),
+            "splits": splits,
+            "traced": [{k: v for k, v in r.items()
+                        if k not in ("final", "trace", "metrics")}
+                       for r in runs["traced"]],
+            "watchdog": watchdog_on_card(),
+            "blackbox": blackbox_run(device),
+            "profile": profile_flag_run(device)}
 
 
 def main(argv=None) -> int:
@@ -1168,6 +1471,7 @@ def main(argv=None) -> int:
     prof_rot = phase_profile("cuda", arms["rotband"])
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
     long_arms, long_prof = phase_long("cuda")
+    recorder = phase_recorder("cuda", [r[0] for r in reps["batched"]])
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -1217,7 +1521,8 @@ def main(argv=None) -> int:
                                "bases_per_s": hifi_bases / hifi_s,
                                "min_identity": min(idents)},
                       "long_molecule": {"arms": long_arms,
-                                        "profiles": long_prof}}))
+                                        "profiles": long_prof},
+                      "flight_recorder": recorder}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

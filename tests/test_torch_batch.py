@@ -35,6 +35,7 @@ from ccsx_tpu_torch.ops import breakpoint as bp_mod
 from ccsx_tpu_torch.ops import cuda_ext, msa, sketch
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.pipeline import batch, pack, run
+from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
 R_INS = 4
 
@@ -108,14 +109,14 @@ def test_pair_executor_host_twins_match_per_pair_spec():
     pairs = _pairs(37, 2, 1300)
     reqs = [prepare.PairRequest(q, t, 75) for q, t in pairs]
     batch_req = prepare.PairBatch(reqs[:2])
-    counts = {}
-    ex = batch.PairExecutor(AlignParams(), device="cpu", counts=counts,
+    m = RunMetrics()
+    ex = batch.PairExecutor(AlignParams(), device="cpu", metrics=m,
                             seed_device_min_t=1000)
     got = ex.run(reqs + [batch_req])
     spec = [HostAligner(AlignParams(), device="cpu").strand_match(q, t, 75)
             for q, t in pairs]
-    assert counts["pairs_seeded_device"] == len(pairs) + 2
-    assert counts["pairs_seeded_host"] == 0 and counts["seed_steps"] == 1
+    assert m.pairs_seeded_device == len(pairs) + 2
+    assert m.pairs_seeded_host == 0 and m.seed_steps == 1
     assert got[-1] == got[:2]
     for (ok, rs), (ok_s, rs_s) in zip(got[:-1], spec):
         assert ok == ok_s
@@ -391,7 +392,7 @@ def test_data_fault_replays_per_request_and_is_reported(corpus, tmp_path,
     assert _port_run(fa, tmp_path, "--batch", "on") == (0, ref["fasta"])
     err = capsys.readouterr().err
     assert "replaying per request" in err
-    assert "failed_steps=" in err and "host_replays=" in err
+    assert "failed_steps=" in err and "host_fallbacks=" in err
 
 
 def test_oom_in_a_slab_bisects_with_the_same_bytes(corpus, tmp_path,

@@ -11,6 +11,8 @@ of the knobs that change them are in tests/test_torch_knobs.py).
 Every output is an integer or a byte: the tolerance is exact equality.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from ccsx_tpu.ops import breakpoint as jbp
 from ccsx_tpu.ops import msa as jmsa
 from ccsx_tpu.pipeline import batch as jbatch
 from ccsx_tpu.utils import synth as jsynth
+from ccsx_tpu.utils.metrics import Metrics
 
 from ccsx_tpu_torch import cli
 from ccsx_tpu_torch.config import AlignParams, CcsConfig
@@ -34,6 +37,7 @@ from ccsx_tpu_torch.consensus import star, whole_read
 from ccsx_tpu_torch.ops import breakpoint as bp_mod
 from ccsx_tpu_torch.ops import msa
 from ccsx_tpu_torch.pipeline import batch
+from ccsx_tpu_torch.utils.run_metrics import PORT_KEYS, RunMetrics
 
 M = 4
 CONSTS = (10, 5, 80, 80, 60)
@@ -154,13 +158,22 @@ def test_executor_serves_round_requests_like_reference():
         qs, qlens, mask = star.StarMsa(AlignParams(), device="cpu").pack(
             ps, (4, 8), 8)
         reqs.append((qs, qlens, mask, ps[0]))
-    want = jbatch.BatchExecutor(JaxConfig(is_bam=False)).run(
+    jm = Metrics()
+    want = jbatch.BatchExecutor(JaxConfig(is_bam=False), metrics=jm).run(
         [jstar.RoundRequest(*r) for r in reqs])
-    counts = {}
+    m = RunMetrics()
     got = batch.BatchExecutor(CcsConfig(is_bam=False), device="cpu",
-                              counts=counts).run(
+                              metrics=m).run(
         [star.RoundRequest(*r) for r in reqs])
-    assert counts == {"round_groups": 2, "bucketed_dispatches": 2}
+    assert {k: getattr(m, k) for k in PORT_KEYS if getattr(m, k)} == \
+        {"round_groups": 2, "bucketed_dispatches": 2}
+    # the JAX keys the port keeps alike; dp_cells_padded and
+    # dp_round_cells_padded differ by design: the JAX package pads Z to a
+    # power of two (_z_bucket), the port does not
+    for k in ("device_dispatches", "banded_dispatches", "dp_cells_real",
+              "dp_round_cells_real", "dp_rowcells_real", "dp_rowcells_cap",
+              "windows"):
+        assert getattr(m, k) == getattr(jm, k), k
     for w, g in zip(want, got):
         assert (g.tlen, g.bp) == (w.tlen, w.bp)
         for name in ("cons", "ins_base", "ins_votes", "ncov", "nwin",
@@ -265,9 +278,11 @@ def _port(fa, out, *extra):
 
 
 def _counts(err):
-    last = err.strip().splitlines()[-1]
-    return {k: int(v) for k, v in (kv.split("=") for kv in last.split()
-                                   if "=" in kv) if v.isdigit()}
+    """The driver's counters: -v's last stderr line is the final metrics
+    snapshot, ``[ccsx-tpu-torch] {json}``."""
+    prefix, snap = err.strip().splitlines()[-1].split(" ", 1)
+    assert prefix == "[ccsx-tpu-torch]"
+    return json.loads(snap)
 
 
 @pytest.mark.parametrize("arm", ["packed", "bucketed", "bucketed_rotband"])
@@ -283,9 +298,9 @@ def test_cli_bucketed_equals_packed_equals_reference(arm, corpus, tmp_path,
     assert _port(fa, tmp_path / "o.fq", "--fastq", "-v", *extra) == (0, ref)
     counts = _counts(capsys.readouterr().err)
     if arm == "packed":
-        assert counts["slabs"] > 0 and "bucketed_groups" not in counts
+        assert counts["slabs"] > 0 and counts["bucketed_groups"] == 0
     else:
-        assert counts["bucketed_groups"] > 0 and "slabs" not in counts
+        assert counts["bucketed_groups"] > 0 and counts["slabs"] == 0
         assert counts["bucketed_dispatches"] >= counts["bucketed_groups"]
 
 

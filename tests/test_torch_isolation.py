@@ -3,6 +3,7 @@ imports jax or anything of the JAX package (ccsx_tpu), and its entry
 points refuse to fall back to the CPU when no card is present."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -45,7 +46,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
     assert {"ccsx_tpu_torch.ops.banded_cuda", "ccsx_tpu_torch.ops.seed_device",
-            "ccsx_tpu_torch.consensus.whole_read"} <= set(mods)
+            "ccsx_tpu_torch.consensus.whole_read",
+            "ccsx_tpu_torch.utils.trace", "ccsx_tpu_torch.utils.metrics",
+            "ccsx_tpu_torch.utils.blackbox",
+            "ccsx_tpu_torch.utils.run_metrics"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -72,6 +76,37 @@ def test_ast_scan_finds_no_forbidden_import():
             bad += [(f.name, n) for n in names
                      if n.split(".")[0] in FORBIDDEN]
     assert not bad
+
+
+def test_stats_and_blackbox_run_without_torch_or_jax(tmp_path):
+    """`python -m ccsx_tpu_torch.cli stats ...` and `... blackbox ...` run
+    with torch, jax and the JAX package unimportable: they read a run's
+    files on a host whose card is wedged."""
+    from ccsx_tpu_torch.utils import blackbox, trace
+
+    t = str(tmp_path / "t.jsonl")
+    tr = trace.Tracer(t)
+    with tr.device_span("refine_packed", group="packed:q9", cells=9):
+        pass
+    tr.close()
+    box = blackbox.BlackBox(blackbox.box_path(str(tmp_path), 7))
+    box.record({"ev": "begin", "tid": "T", "name": "refine_packed"})
+    box.close()
+    blocked = FORBIDDEN + ("torch",)
+    blocker = _BLOCKER.replace(repr(FORBIDDEN), repr(blocked))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for argv, want in ((["stats", t], "packed:q9"),
+                       (["blackbox", str(tmp_path)], "in-flight at death")):
+        code = (blocker + "import runpy\nsys.argv = %r\n" % (
+            ["ccsx_tpu_torch.cli"] + argv,)
+            + "try:\n    runpy.run_module('ccsx_tpu_torch.cli', "
+            "run_name='__main__')\nfinally:\n"
+            "    assert not any(k.split('.')[0] in %r for k in sys.modules)"
+            "\n" % (blocked,))
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        assert want in r.stdout
 
 
 def test_resolve_device_cuda_raises_without_a_card():
@@ -175,4 +210,7 @@ def test_device_fault_ends_the_run_bad_hole_is_quarantined(
     monkeypatch.setattr(run, "ccs_hole", bad_hole)
     assert cli.main(argv + ["-v"]) == 0
     err = capsys.readouterr().err
-    assert "failed: bad hole" in err and "failed=3" in err
+    assert "failed: bad hole" in err
+    # -v's last line is the final metrics snapshot
+    snap = json.loads(err.strip().splitlines()[-1].split(" ", 1)[1])
+    assert snap["holes_failed"] == 3 and snap["holes_out"] == 0

@@ -13,6 +13,8 @@ seeding on a small corpus.  Every output is an integer or a byte: the
 tolerance is exact equality.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from ccsx_tpu_torch.consensus.star import bucket_len, pad_to
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import seed, seed_device, sketch
 from ccsx_tpu_torch.pipeline import batch
+from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
 ERR = dict(sub_rate=0.02, ins_rate=0.05, del_rate=0.05)
 
@@ -177,8 +180,8 @@ def test_pair_executor_matches_reference(min_t):
     want = jex.run([jprep.PairRequest(q, t, 75) for q, t in pairs]
                    + [jprep.PairBatch([jprep.PairRequest(*arm_f, 75),
                                        jprep.PairRequest(*arm_r, 75)])])
-    counts = {}
-    ex = batch.PairExecutor(AlignParams(), device="cpu", counts=counts,
+    pm = RunMetrics()
+    ex = batch.PairExecutor(AlignParams(), device="cpu", metrics=pm,
                             seed_device_min_t=min_t)
     ex.screen_min_device = 2048
     got = ex.run([prepare.PairRequest(q, t, 75) for q, t in pairs]
@@ -191,15 +194,15 @@ def test_pair_executor_matches_reference(min_t):
         assert (g.score, g.qb, g.qe, g.tb, g.te, g.aln, g.mat) == \
             (w.score, w.qb, w.qe, w.tb, w.te, w.aln, w.mat)
     for k in ("pairs_seeded_device", "pairs_seeded_host", "pairs_screened",
-              "pairs_prefiltered"):
-        assert counts[k] == getattr(m, k), k
-    assert counts["pairs"] == m.pair_alignments
+              "pairs_prefiltered", "pair_alignments", "device_dispatches",
+              "dp_cells_real"):
+        assert getattr(pm, k) == getattr(m, k), k
     if min_t:
-        assert counts["seed_steps"] > 0 and "screen_steps" not in counts
-        assert counts["pairs_seeded_host"] > 0
+        assert pm.seed_steps > 0 and pm.screen_steps == 0
+        assert pm.pairs_seeded_host > 0
     else:
-        assert counts["screen_steps"] > 0 and "seed_steps" not in counts
-        assert counts["pairs_prefiltered"] > 0
+        assert pm.screen_steps > 0 and pm.seed_steps == 0
+        assert pm.pairs_prefiltered > 0
 
 
 def test_failed_seed_and_screen_waves_take_the_host_rung():
@@ -220,8 +223,8 @@ def test_failed_seed_and_screen_waves_take_the_host_rung():
 
     for min_t, mod, name in ((1024, seed_device, "seed_step"),
                              (0, sketch, "screen_step")):
-        counts = {}
-        ex = batch.PairExecutor(AlignParams(), device="cpu", counts=counts,
+        m = RunMetrics()
+        ex = batch.PairExecutor(AlignParams(), device="cpu", metrics=m,
                                 seed_device_min_t=min_t)
         ex.screen_min_device = 2048
         real = getattr(mod, name)
@@ -230,7 +233,7 @@ def test_failed_seed_and_screen_waves_take_the_host_rung():
             got = ex.run(reqs)
         finally:
             setattr(mod, name, real)
-        assert counts["failed_steps"] > 0 and counts["host_replays"] > 0
+        assert m.failed_steps > 0 and m.host_fallbacks > 0
         for (ok_w, w), (ok_g, g) in zip(want, got):
             assert ok_g == ok_w
             if ok_w:
@@ -268,5 +271,6 @@ def test_cli_device_seeding_matches_reference(long_corpus, tmp_path, capsys):
                      str(out)]) == 0
     assert out.read_bytes() == ref
     last = capsys.readouterr().err.strip().splitlines()[-1]
-    counts = dict(kv.split("=") for kv in last.split() if "=" in kv)
-    assert int(counts["pairs_seeded_device"]) > 0
+    prefix, snap = last.split(" ", 1)
+    assert prefix == "[ccsx-tpu-torch]"
+    assert json.loads(snap)["pairs_seeded_device"] > 0
