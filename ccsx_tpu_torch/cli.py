@@ -10,7 +10,8 @@ and for its CPU backend; ``--pass-buckets`` switches the batched driver
 from packed slabs to the bucketed (Z, P) grouping.  The tuning knobs keep
 the JAX package's spellings, defaults and error messages, and so do the
 recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
-``--profile``) and ``--max-failed-holes``.
+``--profile``), ``--max-failed-holes`` and the crash-safety flags
+(``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``).
 
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
     python -m ccsx_tpu_torch.cli stats <trace/metrics JSONL>...
@@ -103,6 +104,26 @@ Port options (long):
                       failure) or a fraction of processed holes in (0, 1)
                       (checked at the end); exceeding it exits rc 2
                       [unbounded]
+--journal <path>      progress journal for resumable runs: a killed run
+                      re-run with the same command continues to the same
+                      bytes; SIGTERM/SIGINT drain the run to rc 75
+--salvage             hostile-input salvage: classified input corruption
+                      (torn BGZF blocks, corrupt BAM records, truncated
+                      FASTQ, bad ZMW names) is booked, the reader
+                      resyncs, and every undamaged hole still emits; the
+                      run exits 0 marked degraded, corrupt holes spend
+                      the --max-failed-holes budget.  Off = fail-fast
+                      rc 1 on the first corrupt byte
+--max-record-bytes <n>
+                      allocation bound on one BAM record: a corrupt
+                      length field larger than this is rejected before
+                      allocating [268435456]
+--inject-faults p@N,...
+                      deterministic fault injection; testing only
+                      (points: ingest, compute, device_oom, stall,
+                      device_hang, rank_death, write, journal,
+                      input_corrupt, disk_full, sigterm; CCSX_FAULTS env
+                      equivalent; injected kills exit rc 57)
 
 Subcommands:
 stats <jsonl>...      summarize trace/metrics JSONL files
@@ -147,6 +168,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR")
     p.add_argument("--max-failed-holes", default=None,
                    dest="max_failed_holes", metavar="V")
+    p.add_argument("--journal", default=None,
+                   help="Progress journal path for resumable runs")
+    p.add_argument("--salvage", action="store_true", dest="salvage")
+    p.add_argument("--max-record-bytes", type=int, default=None,
+                   dest="max_record_bytes", metavar="N")
+    p.add_argument("--inject-faults", default=None, metavar="SPEC")
     return p
 
 
@@ -208,6 +235,13 @@ def config_from_args(args) -> CcsConfig:
                   ">= 0 or a fraction in (0, 1), got "
                   f"{args.max_failed_holes!r}", file=sys.stderr)
             raise SystemExit(1)
+    max_record_bytes = args.max_record_bytes
+    if max_record_bytes is not None and max_record_bytes < 4096:
+        # a bound below any real record would reject every input; 4096
+        # still lets tests drive the oversize classification cheaply
+        print(f"Error: --max-record-bytes must be >= 4096, got "
+              f"{max_record_bytes}", file=sys.stderr)
+        raise SystemExit(1)
     return CcsConfig(
         min_subread_len=args.min_len,
         max_subread_len=args.max_len,
@@ -228,6 +262,7 @@ def config_from_args(args) -> CcsConfig:
         trace_path=args.trace,
         stall_timeout_s=args.stall_timeout,
         max_failed_holes=max_failed,
+        salvage=args.salvage,
         # an explicit bucket list selects the bucketed control path; the
         # default is pass packing (pipeline/pack.py)
         pass_packing=pass_buckets is None,
@@ -235,6 +270,8 @@ def config_from_args(args) -> CcsConfig:
         **({"slab_rows": args.slab_rows} if args.slab_rows else {}),
         **({"slab_shape_ladder": ladder} if ladder is not None else {}),
         **({"seed_device_min_t": min_t} if min_t is not None else {}),
+        **({"max_record_bytes": max_record_bytes}
+           if max_record_bytes is not None else {}),
     )
 
 
@@ -260,11 +297,20 @@ def main(argv: Optional[list] = None) -> int:
         cfg = config_from_args(args)
     except SystemExit as e:
         return int(e.code or 0)
+    if args.inject_faults:
+        from ccsx_tpu_torch.utils import faultinject
+
+        try:
+            faultinject.arm(args.inject_faults)
+        except ValueError as e:
+            print(f"Error: --inject-faults: {e}", file=sys.stderr)
+            return exitcodes.RC_FATAL
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
     def _run():
         return run_pipeline(args.input, args.output, cfg, batch=args.batch,
-                            inflight=args.inflight)
+                            inflight=args.inflight,
+                            journal_path=args.journal)
 
     if args.profile:
         # the counterpart of the JAX package's jax.profiler.trace(DIR)

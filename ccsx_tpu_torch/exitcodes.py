@@ -4,20 +4,24 @@
 * ``RC_FATAL`` (1) — a clean operational refusal or failure: invalid input
   stream, unwritable output path, bad flags, an unported mode.
 * ``RC_FAILED_HOLES`` (2) — a failure budget was exceeded.
-* ``RC_INTERRUPTED`` (75, EX_TEMPFAIL) — a graceful, resumable drain.
-* ``RC_INJECTED_KILL`` (57) — a fault-injection hard exit.
+* ``RC_INTERRUPTED`` (75, EX_TEMPFAIL) — a graceful, resumable drain:
+  SIGTERM/SIGINT stopped admission, the in-flight holes finished, the
+  writer and the journal settled (utils/drain.py); re-running the same
+  command with the same ``--journal`` continues to the same bytes.
+* ``RC_INJECTED_KILL`` (57) — a fault-injection hard exit (the ``write``,
+  ``journal`` and ``rank_death`` points of utils/faultinject.py, os._exit),
+  distinct so a test or an operator can tell an injected kill from a real
+  crash.  Mirrors faultinject.EXIT_CODE.
 
-Both drivers of this package return 0, 1 and 2 (``--max-failed-holes``,
-utils/metrics.check_failure_budget); 75 and 57 wait for the drain and
-fault-injection planes and are kept so the numbering cannot drift from the
-reference.
+Both drivers of this package return all five.
 """
+
+from ccsx_tpu_torch.utils.faultinject import EXIT_CODE as RC_INJECTED_KILL
 
 RC_OK = 0
 RC_FATAL = 1
 RC_FAILED_HOLES = 2
 RC_INTERRUPTED = 75
-RC_INJECTED_KILL = 57
 
 __all__ = ["RC_OK", "RC_FATAL", "RC_FAILED_HOLES", "RC_INTERRUPTED",
            "RC_INJECTED_KILL"]

@@ -78,7 +78,8 @@ from ccsx_tpu_torch.ops import cuda_ext
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
 from ccsx_tpu_torch.pipeline import pack as pack_mod
-from ccsx_tpu_torch.utils import trace
+from ccsx_tpu_torch.utils import faultinject, trace
+from ccsx_tpu_torch.utils.journal import Journal
 from ccsx_tpu_torch.utils.metrics import check_failure_budget
 from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
@@ -765,10 +766,13 @@ class PairExecutor:
 
         def dispatch(gidxs, key):
             args = self._pad_pair(pairs, gidxs, key)
+            faultinject.fire("device_oom")
             self.metrics.bump(screen_steps=1)
             with trace.device_span("sketch_screen", group=label(key),
                                    shape=f"N{len(gidxs)}",
                                    n=len(gidxs)) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(sketch.screen_step(*key)(*args))
 
         def finish(gidxs, key, out):
@@ -806,10 +810,13 @@ class PairExecutor:
 
         def dispatch(gidxs, key):
             args = self._pad_pair(pairs, gidxs, key)
+            faultinject.fire("device_oom")
             self.metrics.bump(seed_steps=1)
             with trace.device_span("seed_device", group=label(key),
                                    shape=f"N{len(gidxs)}",
                                    n=len(gidxs)) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(seed_device.seed_step(*key)(*args))
 
         def finish(gidxs, key, out):
@@ -926,11 +933,14 @@ class PairExecutor:
                 small[z, 0] = len(pairs[i].q)
                 small[z, 1] = len(pairs[i].t)
                 small[z, 2:6] = lines[i]
+            faultinject.fire("device_oom")
             step = _pair_fill_packed(self.params, qmax, tmax, self.device)
             N = len(idxs)
             with trace.device_span("pair_fill", group=label(key),
                                    cells=N * qmax * band, shape=f"N{N}",
                                    n=N) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(step(big, small))
 
         def finish(idxs, key, res):
@@ -1138,6 +1148,7 @@ class BatchExecutor:
             Z = len(idxs)
             buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
                                                tmax), pin=pin)
+            faultinject.fire("device_oom")
             step = _round_step(cfg.align, M, tmax, self._bp_consts(),
                                (P, qmax), cfg.banded_impl)
             self.metrics.bump(bucketed_dispatches=1)
@@ -1146,6 +1157,8 @@ class BatchExecutor:
                     "round", group=label(key),
                     cells=Z * P * qmax * cfg.align.band, shape=f"Z{Z}",
                     n=Z, Z=Z) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(step(buf.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
@@ -1202,6 +1215,7 @@ class BatchExecutor:
             Z = len(idxs)
             buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
                                                tmax), pin=pin)
+            faultinject.fire("device_oom")
             step = _refine_step(cfg.align, M, tmax, iters,
                                 self._bp_consts(), (P, qmax),
                                 cfg.banded_impl)
@@ -1211,6 +1225,8 @@ class BatchExecutor:
                     "refine", group=label(key),
                     cells=Z * P * qmax * cfg.align.band * iters,
                     shape=f"Z{Z}", n=Z, Z=Z) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(step(buf.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
@@ -1275,6 +1291,7 @@ class BatchExecutor:
 
         def dispatch(idxs, key):
             qmax, tmax, iters, _ = key
+            faultinject.fire("device_oom")
             args = self._stack_slab(requests, idxs, qmax, tmax)
             R, H = args[0].shape[0], args[4].shape[0]
             big, small = _pack_slab_args(args, pin=pin)
@@ -1288,6 +1305,8 @@ class BatchExecutor:
                     shape=f"R{R}:S{H}",
                     plan={"slab": key[3], "rows": R,
                           "holes": len(idxs)}) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
                 return sp.force(step(
                     big.to(self.device, non_blocking=pin),
                     small.to(self.device, non_blocking=pin)))
@@ -1332,6 +1351,7 @@ class _Hole:
     gen: object = None         # consensus generator (None => skipped)
     req: object = None         # pending PairRequest | PairBatch | RefineRequest
     done: bool = False
+    resumed: bool = False      # written by an earlier run: skip, no journal
     cns: Optional[tuple] = None  # (seq_bytes, qual_bytes|None)
     err: Optional[Exception] = None
 
@@ -1344,6 +1364,7 @@ def _finish(result):
 def _start_hole(hole: _Hole, cfg: CcsConfig) -> None:
     """Start the combined prep+consensus generator (first step only)."""
     try:
+        faultinject.fire("compute")
         hole.gen = full_gen_for_zmw(hole.zmw, cfg)
         hole.req = next(hole.gen)
     except StopIteration as e:
@@ -1390,7 +1411,8 @@ def _grow_window(window: int, cap: int, growth: int) -> int:
 
 
 def drive_batched(stream, writer, cfg: CcsConfig, device,
-                  metrics: RunMetrics, inflight: Optional[int] = None) -> None:
+                  metrics: RunMetrics, journal: Journal,
+                  inflight: Optional[int] = None) -> None:
     """The batched scheduler over an open ZMW stream and writer.
 
     Admits holes into a window, runs one pair sweep and one refine sweep
@@ -1402,9 +1424,13 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     emission stay within 4x the cap.
 
     Counters, stage timers and progress events go into ``metrics``; the
-    spans into the installed tracer (the caller's, utils/trace.py).  A
-    kernel or card fault raises cuda_ext.KernelError out of here, and a
-    count-form --max-failed-holes exceeded at a failed hole raises
+    spans into the installed tracer (the caller's, utils/trace.py).  The
+    first ``journal.holes_done`` holes were written by an earlier run: they
+    are marked done at admission and launch nothing; every other retired
+    hole advances the journal.  The caller's stream stops at a drain
+    (run.guarded_stream), and in-flight holes then finish.  A kernel or
+    card fault raises cuda_ext.KernelError out of here, and a count-form
+    --max-failed-holes exceeded at a failed hole raises
     FailureBudgetExceeded."""
     explicit_window = inflight is not None and int(inflight) > 0
     cap = max(1, int(inflight) if explicit_window
@@ -1416,6 +1442,7 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                                  device=device, metrics=metrics,
                                  prefilter=cfg.prefilter,
                                  seed_device_min_t=cfg.seed_device_min_t)
+    resume = journal.holes_done
     active: List[_Hole] = []
     finished: Dict[int, _Hole] = {}
     next_idx = 0       # next hole index to admit
@@ -1426,6 +1453,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         nonlocal next_emit
         while next_emit in finished:
             h = finished.pop(next_emit)
+            if h.resumed:
+                next_emit += 1
+                continue
+            wrote = False
             if h.err is not None:
                 metrics.holes_failed += 1
                 print(f"[ccsx-tpu-torch] hole {h.zmw.movie}/{h.zmw.hole} "
@@ -1437,6 +1468,14 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                         trace.span("write_record", cat="write"):
                     writer.put(f"{h.zmw.movie}/{h.zmw.hole}/ccs", *h.cns)
                 metrics.holes_out += 1
+                wrote = True
+            # flush-before-cursor + write fault point + advance
+            journal.retire(writer, wrote, metrics)
+            # rank_death: a hard kill at a retirement point, leaving a
+            # valid journal and durable records behind; sigterm: a real
+            # signal at the same point, the drain made deterministic
+            faultinject.fire("rank_death")
+            faultinject.fire("sigterm")
             metrics.tick()
             next_emit += 1
 
@@ -1447,16 +1486,22 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 with metrics.timer("ingest"), \
                         trace.span("ingest_hole", cat="ingest"):
                     z = next(stream)
+                    faultinject.fire("ingest")
             except StopIteration:
                 exhausted = True
                 break
             metrics.holes_in += 1
             h = _Hole(idx=next_idx, zmw=z)
             next_idx += 1
-            # inline prep is all critical path: its own stage and blocked
-            with metrics.timer("prep"), metrics.timer("prep_blocked"), \
-                    trace.span("prep_hole", cat="prep", hole=str(z.hole)):
-                _start_hole(h, cfg)
+            if metrics.holes_in <= resume:
+                h.done = h.resumed = True
+            else:
+                # inline prep is all critical path: its own stage and
+                # blocked
+                with metrics.timer("prep"), metrics.timer("prep_blocked"), \
+                        trace.span("prep_hole", cat="prep",
+                                   hole=str(z.hole)):
+                    _start_hole(h, cfg)
             if h.done:
                 finished[h.idx] = h
             else:

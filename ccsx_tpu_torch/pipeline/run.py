@@ -10,12 +10,23 @@ skipped, and the run goes on, up to the ``--max-failed-holes`` budget, past
 which it ends with RC_FAILED_HOLES.  A fault of the card or of a kernel is
 not a bad hole: it ends the run with RC_FATAL (on the card, the kernels are
 built before the first hole for the same reason).
+
+Crash safety, the JAX package's planes at its places: ``--journal`` resumes
+a killed run to the same bytes (utils/journal.py; the writer is
+synchronous and counts its bytes), SIGTERM/SIGINT drain it to
+RC_INTERRUPTED (utils/drain.py, polled by ``guarded_stream``), and
+``--salvage`` books classified input corruption and reads on
+(io/corruption.py).  ``--inject-faults`` (utils/faultinject.py) fires each
+recovery on a deterministic schedule.
 """
 
 from __future__ import annotations
 
 import collections
+import gzip
+import os
 import sys
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 from ccsx_tpu_torch import exitcodes
@@ -24,9 +35,12 @@ from ccsx_tpu_torch.consensus.align_host import HostAligner
 from ccsx_tpu_torch.consensus.hole import ccs_hole
 from ccsx_tpu_torch.io import bam as bam_mod
 from ccsx_tpu_torch.io import fastx, zmw
+from ccsx_tpu_torch.io.corruption import CorruptionError, SalvageSink
 from ccsx_tpu_torch.ops import cuda_ext
-from ccsx_tpu_torch.utils import trace
+from ccsx_tpu_torch.utils import faultinject, trace
 from ccsx_tpu_torch.utils.device import resolve_device
+from ccsx_tpu_torch.utils.drain import DrainGuard
+from ccsx_tpu_torch.utils.journal import Journal
 from ccsx_tpu_torch.utils.metrics import (FailureBudgetExceeded,
                                           check_failure_budget)
 from ccsx_tpu_torch.utils.run_metrics import RunMetrics
@@ -35,30 +49,100 @@ from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 def open_zmw_stream(path: str, cfg: CcsConfig, metrics=None):
     """Filtered ZMW iterator for BAM or FASTA/Q input ('-' = stdin).
     Opens the file eagerly, so an unreadable path fails here.  ``metrics``
-    receives the filtered-hole accounting."""
+    receives the filtered-hole accounting.
+
+    ``cfg.salvage`` selects salvage-mode ingest: classified corruption is
+    booked into Metrics (holes_corrupt + corrupt_reasons + the degraded
+    mark) and resynced past instead of killing the stream
+    (io/corruption.py).  The JAX package's native-reader branch is not
+    ported: the Python readers serve every input."""
+    sink = SalvageSink(metrics, cfg.max_record_bytes) if cfg.salvage \
+        else None
     if cfg.is_bam:
         if path == "-":
-            records = bam_mod.read_bam_records(sys.stdin.buffer)
+            records = bam_mod.read_bam_records(
+                sys.stdin.buffer, salvage=sink,
+                max_record_bytes=cfg.max_record_bytes)
         else:
             open(path, "rb").close()
-            records = bam_mod.read_bam_records(path)
+            records = bam_mod.read_bam_records(
+                path, salvage=sink, max_record_bytes=cfg.max_record_bytes)
     else:
         f = sys.stdin.buffer if path == "-" else open(path, "rb")
-        records = fastx.read_fastx(f)
-    return zmw.stream_zmws(records, cfg, metrics=metrics)
+        records = fastx.read_fastx(f, salvage=sink)
+    return zmw.stream_zmws(records, cfg, metrics=metrics, salvage=sink)
 
 
-class _Writer:
-    """FASTA/FASTQ writer over a file object (UTF-8, like the reference's)."""
+def guarded_stream(stream, cfg: CcsConfig, metrics, guard=None):
+    """The drivers' shared ingest guard, wrapped around an open ZMW stream:
 
-    def __init__(self, path: str):
-        self._own = path != "-"
-        self._f = (open(path, "w", encoding="utf-8") if self._own
-                   else sys.stdout)
+    * graceful drain: once ``guard.requested`` (SIGTERM/SIGINT,
+      utils/drain.py) the stream reports exhausted — admission stops,
+      in-flight work finishes, and the run exits RC_INTERRUPTED;
+    * the ``input_corrupt`` fault point (utils/faultinject.py): with
+      --salvage the injected corruption drops that one hole and the
+      stream CONTINUES; without it, the clean rc-1 path;
+    * the salvage rung for classified corruption raised by the stream
+      itself: with --salvage the event is booked and the stream ENDS
+      there (a generator that raised is closed).  The salvage-mode
+      readers resync internally and never raise here;
+    * an absolute --max-failed-holes budget is re-checked per admitted
+      hole, so reader-booked corruption events abort the ingest promptly.
+    """
+    sink = SalvageSink(metrics) if cfg.salvage else None
+    it = iter(stream)
+    while True:
+        if guard is not None and guard.requested:
+            return
+        try:
+            z = next(it)
+        except StopIteration:
+            return
+        except CorruptionError as e:
+            if sink is None:
+                raise
+            sink.record(e.reason)
+            print(f"[ccsx-tpu-torch] salvage: classified corruption from "
+                  f"the stream ({e.reason}: {e}); ending ingestion — "
+                  "emitting what was salvaged", file=sys.stderr)
+            return
+        try:
+            faultinject.fire("input_corrupt")
+        except CorruptionError as e:
+            if sink is None:
+                raise
+            sink.record(e.reason)
+            print(f"[ccsx-tpu-torch] salvage: dropped corrupt input unit "
+                  f"({e.reason}: {e})", file=sys.stderr)
+            continue
+        # count-form budgets abort mid-ingest (fractions settle at end
+        # of run where the denominator is final)
+        check_failure_budget(metrics, cfg)
+        yield z
+
+
+class _PyWriter:
+    """FASTA/FASTQ writer over a file object (UTF-8, like the reference's).
+    Tracks ``bytes_out`` — the exact output size after every record —
+    which the journal records as its torn-tail recovery offset;
+    fastx.format_record counts UTF-8-encoded bytes, not len(str)."""
+
+    def __init__(self, f, own: bool, start_bytes: int = 0):
+        self._f = f
+        self._own = own
+        self.bytes_out = start_bytes
 
     def put(self, name: str, seq: bytes, qual: bytes | None = None) -> None:
-        rec, _ = fastx.format_record(name, seq, qual)
+        # disk_full fault point (ENOSPC): fires BEFORE any bytes land, so
+        # the journaled offset stays behind the durable output and a
+        # resume recomputes the interrupted hole
+        faultinject.fire("disk_full")
+        rec, nbytes = fastx.format_record(name, seq, qual)
         self._f.write(rec)
+        self.bytes_out += nbytes
+
+    def flush(self) -> None:
+        self._f.flush()
 
     def close(self) -> None:
         if self._own:
@@ -67,18 +151,36 @@ class _Writer:
             self._f.flush()
 
 
+def open_writer(path: str, append: bool = False) -> _PyWriter:
+    """The output writer ('-' = stdout); ``append`` continues a journaled
+    file from its current size.  Synchronous and flushable with byte
+    accounting, as the journal's crash contract needs (the record must be
+    durable before the cursor claims it)."""
+    if path == "-":
+        return _PyWriter(sys.stdout, own=False)
+    start = os.path.getsize(path) if append and os.path.exists(path) else 0
+    # UTF-8 pinned (not the locale default) so bytes_out's encode-based
+    # accounting always matches what reaches the file
+    return _PyWriter(open(path, "a" if append else "w", encoding="utf-8"),
+                     own=True, start_bytes=start)
+
+
 def drive_per_hole(stream, writer, cfg: CcsConfig, device,
-                   metrics: RunMetrics) -> None:
+                   metrics: RunMetrics, journal: Journal) -> None:
     """The per-hole driver over an open ZMW stream and writer (--batch
     off): a bounded pool of -j threads, results drained in input order.  A
     hole's own error is quarantined; a kernel or card fault raises
     cuda_ext.KernelError, and a count-form --max-failed-holes exceeded at a
-    failed hole raises FailureBudgetExceeded."""
+    failed hole raises FailureBudgetExceeded.  The first
+    ``journal.holes_done`` holes were written by an earlier run and are
+    skipped; each retired hole advances the journal."""
     aligner = HostAligner(cfg.align, device=device)
+    resume = journal.holes_done
 
     def compute(z):
         stats: dict = {}
         try:
+            faultinject.fire("compute")
             with trace.span("hole_compute", cat="compute", hole=str(z.hole)):
                 return z, ccs_hole(z, aligner, cfg, stats), None, stats
         except Exception as e:  # quarantine: one bad hole must not kill the run
@@ -95,6 +197,7 @@ def drive_per_hole(stream, writer, cfg: CcsConfig, device,
         # bound: each window runs >= 1 round of 3 device calls
         metrics.windows += stats.get("windows", 0)
         metrics.device_dispatches += 3 * stats.get("windows", 0)
+        wrote = False
         with metrics.timer("write"), trace.span("write_record", cat="write"):
             if err is not None:
                 metrics.holes_failed += 1
@@ -105,6 +208,12 @@ def drive_per_hole(stream, writer, cfg: CcsConfig, device,
             elif rec is not None and rec[0]:
                 writer.put(f"{z.movie}/{z.hole}/ccs", rec[0], rec[1])
                 metrics.holes_out += 1
+                wrote = True
+        # flush-before-cursor + write fault point + advance
+        journal.retire(writer, wrote, metrics)
+        # a real SIGTERM at a retirement point: the drain, made
+        # deterministic
+        faultinject.fire("sigterm")
         metrics.tick()
 
     pool = ThreadPoolExecutor(max_workers=cfg.threads) \
@@ -116,9 +225,12 @@ def drive_per_hole(stream, writer, cfg: CcsConfig, device,
                 with metrics.timer("ingest"), \
                         trace.span("ingest_hole", cat="ingest"):
                     z = next(stream)
+                    faultinject.fire("ingest")
             except StopIteration:
                 break
             metrics.holes_in += 1
+            if metrics.holes_in <= resume:
+                continue  # written by an earlier run
             metrics.heartbeat()
             if pool is None:
                 with metrics.timer("compute"):
@@ -141,18 +253,23 @@ def drive_per_hole(stream, writer, cfg: CcsConfig, device,
 
 
 def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
-                 batch: str = "auto", inflight: int | None = None) -> int:
+                 batch: str = "auto", inflight: int | None = None,
+                 journal_path: str | None = None) -> int:
     """One run end to end.  ``batch``: 'on' runs the batched packed driver
     (pipeline/batch.py), 'off' the per-hole driver, 'auto' the batched one
     on the card and the per-hole one on the CPU.  ``inflight`` pins the
-    batched driver's admission window.
+    batched driver's admission window.  ``journal_path`` (``--journal``)
+    makes the run resumable: the holes it records as done are skipped and
+    the output continues from its journaled size.
 
     The run owns the Metrics (``--metrics``: JSONL events, the final one
-    at the end whatever the exit path) and the Tracer (``--trace``,
-    ``--stall-timeout``), installed for the run.  rc 1: no card, a kernel
-    that cannot build, an unreadable input, an unwritable output or trace
-    path, an invalid input stream, a device fault; rc 2: the
-    ``--max-failed-holes`` budget was exceeded."""
+    at the end whatever the exit path), the Tracer (``--trace``,
+    ``--stall-timeout``), installed for the run, and the drain guard
+    (SIGTERM/SIGINT).  rc 1: no card, a kernel that cannot build, an
+    unreadable input, an unwritable output or trace path, an invalid input
+    stream, a failed write, a device fault; rc 2: the
+    ``--max-failed-holes`` budget was exceeded; rc 75: drained by a signal,
+    resumable with the same command."""
     try:
         device = resolve_device(cfg.device)
     except RuntimeError as e:
@@ -176,13 +293,25 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
         metrics.close_stream()  # no final event for a non-run
         return exitcodes.RC_FATAL
+    # load under this run's fingerprint and reconcile the output tail
+    # (truncate torn / refuse untrustworthy) before the writer opens
+    journal = Journal.for_run(journal_path, in_path, cfg, out_path)
+    # restore the journaled failure count, so --max-failed-holes is judged
+    # over the whole logical run, resumes included
+    metrics.holes_failed = journal.holes_failed
+    metrics.holes_prior_emitted = journal.holes_emitted
     try:
-        writer = _Writer(out_path)
+        writer = open_writer(out_path, append=bool(journal.holes_done))
     except OSError as e:
         print(f"Cannot open file for write! ({e})", file=sys.stderr)
         metrics.close_stream()
         return exitcodes.RC_FATAL
     rc = exitcodes.RC_OK
+    # graceful drain (utils/drain.py): SIGTERM/SIGINT stop admission;
+    # in-flight holes finish, writer and journal settle, rc 75 resumable.
+    # Installed immediately before the try whose finally restores it
+    guard = DrainGuard.install()
+    stream = guarded_stream(stream, cfg, metrics, guard)
     # the flight recorder: constructed inside the try, so neither its
     # watchdog thread nor its file can leak, and an unwritable --trace
     # path is refused like an unwritable output path
@@ -201,12 +330,14 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
             from ccsx_tpu_torch.pipeline import batch as batch_mod
 
             batch_mod.drive_batched(stream, writer, cfg, device, metrics,
-                                    inflight)
+                                    journal, inflight)
         else:
-            drive_per_hole(stream, writer, cfg, device, metrics)
+            drive_per_hole(stream, writer, cfg, device, metrics, journal)
         # a fraction-form --max-failed-holes settles at the end, when the
-        # processed-hole denominator is final
-        check_failure_budget(metrics, cfg, final=True)
+        # processed-hole denominator is final — but not on a drain, whose
+        # denominator is a partial run's
+        if not guard.requested:
+            check_failure_budget(metrics, cfg, final=True)
     except FailureBudgetExceeded as e:
         print(f"Error: {e}; aborting instead of emitting a degraded output "
               "at rc 0", file=sys.stderr)
@@ -214,18 +345,26 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     except cuda_ext.KernelError as e:
         print(f"Error: device failure, run aborted: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
-    except (bam_mod.BamError, zmw.InvalidZmwName, ValueError) as e:
+    except (bam_mod.BamError, zmw.InvalidZmwName, ValueError,
+            # damaged gzip/BGZF under the fail-fast readers (the JAX
+            # package's native reader classifies these; the port reads
+            # every input through the Python readers)
+            zlib.error, EOFError, gzip.BadGzipFile) as e:
         print(f"Error: invalid input stream: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
     except OSError as e:
         print(f"Error: write failed: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
     finally:
+        guard.restore()
         try:
             writer.close()
         except OSError as e:
             print(f"Error: write failed! ({e})", file=sys.stderr)
             rc = exitcodes.RC_FATAL
+        # settle the (possibly rate-limited) cursor AFTER the writer has
+        # made the records durable
+        journal.close()
         # the watchdog stops and the trace is exported before the final
         # metrics event, so a degraded mark set mid-run is in it
         trace.uninstall()
@@ -238,4 +377,8 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
               f"host_fallbacks={metrics.host_fallbacks}: batched device "
               "steps failed and their requests ran on the per-hole round",
               file=sys.stderr)
+    if rc == exitcodes.RC_OK and guard.requested:
+        print("[ccsx-tpu-torch] drained cleanly; resume with the same "
+              "command to continue", file=sys.stderr)
+        rc = exitcodes.RC_INTERRUPTED
     return rc

@@ -77,7 +77,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ring the ``blackbox`` subcommand reads back in a process that cannot
    import torch (nothing in flight), and a run under ``--profile DIR``,
    whose Chrome trace must name the global fill, local fill and walk
-   kernels.
+   kernels;
+8. crash and resume: the scale corpus through the default arm under each
+   fault point of ``utils/faultinject.py``, each run a CLI process of its
+   own (the kills call os._exit), three at a time.  ``write``, ``journal``
+   and ``rank_death`` at the 20th retirement under ``--journal`` (rc 57,
+   the killed journal's cursor, a torn tail where one is due), ``sigterm``
+   (rc 75, the drained journal) and ``disk_full`` (rc 1) each resume with
+   the same command to the pinned md5; ``device_oom`` once (a resplit, no
+   failed step) and always (the per-request replay on the card), ``stall``
+   and ``device_hang`` (4 s, past the watchdog's grace) to the pinned md5;
+   ``compute@3`` and ``--salvage input_corrupt@5`` to the pinned output
+   less that hole's record; ``input_corrupt@5`` without salvage to rc 1.
+   Every run must launch the global fill, the local fill and the walk.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import operator
 import os
 import shutil
 import statistics
@@ -1386,6 +1399,275 @@ def phase_recorder(device, untraced):
             "profile": profile_flag_run(device)}
 
 
+# phase 8: one run of the CLI in a process of its own (the injected kills
+# call os._exit); the launch counts are written to stderr at every exit,
+# the hard one included
+CRASH_RUNNER = """
+import json, os, sys
+from ccsx_tpu_torch import cli
+from ccsx_tpu_torch.ops import cuda_ext
+def report():
+    sys.stderr.write("[chip_smoke] launches " + json.dumps(cuda_ext.LAUNCHES)
+                     + "\\n")
+    sys.stderr.flush()
+real_exit = os._exit
+def hard_exit(code):
+    report()
+    real_exit(code)
+os._exit = hard_exit
+rc = cli.main(sys.argv[1:])
+report()
+sys.exit(rc)
+"""
+# the kernels every phase 8 run must go through: the default arm's
+CRASH_KERNELS = ("banded_global", "banded_local", "traceback_walk")
+# the retirement at which phase 8's kill points fire
+CRASH_AT = 20
+
+
+def crash_cli(argv, env_extra=None, timeout=300):
+    """The port's CLI on ``argv`` (under -v) in a subprocess; returns rc,
+    seconds, stderr, the launch counts and the final metrics snapshot (None
+    after a hard exit)."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    env.pop("CCSX_FAULTS", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CRASH_RUNNER, "-v", *argv],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t0
+    lines = r.stderr.splitlines()
+    launches = [json.loads(ln.split(" ", 2)[2]) for ln in lines
+                if ln.startswith("[chip_smoke] launches ")]
+    snaps = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+             if ln.startswith("[ccsx-tpu-torch] {")]
+    return {"rc": r.returncode, "seconds": secs, "stderr": r.stderr,
+            "launches": launches[-1] if launches else None,
+            "final": snaps[-1] if snaps else None}
+
+
+def crash_scenario(name, spec, env, extra, resume, check, bam, device):
+    """One phase 8 row: the faulted run and, with ``resume``, the same
+    command without the fault.  ``check(run, resumed)`` returns the failed
+    conditions.  Every run must have launched the default arm's kernels."""
+    out = os.path.join(WORK, f"crash_{name}.fa")
+    jp = os.path.join(WORK, f"crash_{name}.json")
+    for f in (out, jp):
+        if os.path.exists(f):
+            os.remove(f)
+    base = ["--device", device, *extra]
+    if resume:
+        base += ["--journal", jp]
+    base += [bam, out]
+    run = crash_cli(base + ["--inject-faults", spec], env)
+    run["journal"] = (json.load(open(jp)) if resume and os.path.exists(jp)
+                      else None)
+    run["out_size"] = os.path.getsize(out) if os.path.exists(out) else None
+    run["out"] = open(out, "rb").read() if os.path.exists(out) else b""
+    resumed = None
+    if resume:
+        resumed = crash_cli(base, env)
+        resumed["journal"] = json.load(open(jp))
+        resumed["out"] = open(out, "rb").read()
+    failed = list(check(run, resumed))
+    for tag, r in (("run", run), ("resume", resumed)):
+        if r is None:
+            continue
+        n = r["launches"] or {}
+        if any(n.get(k, 0) <= 0 for k in CRASH_KERNELS) or n.get(
+                "banded_rotband"):
+            failed.append(f"{tag}: launches {n} miss the default arm's "
+                          "kernels")
+        if "Traceback" in r["stderr"]:
+            failed.append(f"{tag}: a traceback on stderr")
+    return {"name": name, "spec": spec, "run": run, "resumed": resumed,
+            "failed": failed}
+
+
+def _md5(b):
+    return hashlib.md5(b).hexdigest()
+
+
+def phase_crash(device, uninterrupted):
+    """Phase 8, crash and resume on the card: the scale corpus through the
+    default arm under each fault point (crash_scenario, three at a time),
+    each to the pinned bytes or to the pinned bytes less the records the
+    fault took.  ``uninterrupted`` is phase 4's cold run's driver
+    counters."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.pipeline.run import open_zmw_stream
+
+    bam = os.path.join(WORK, "in64.bam")
+    ref = open(os.path.join(WORK, "out64.fa"), "rb").read()
+    if _md5(ref) != SCALE64_MD5:
+        raise AssertionError("phase 8 needs phase 4's pinned output")
+    recs = {">" + c.split("\n", 1)[0]: ">" + c
+            for c in ref.decode().split(">")[1:]}
+    cfg = cli.config_from_args(cli.build_parser().parse_args([bam, "-"]))
+    stream = [f">{z.movie}/{z.hole}/ccs"
+              for z in open_zmw_stream(bam, cfg)]
+    # the position (1-based) in the filtered stream of the k-th hole that
+    # writes a record: write@k and disk_full@k fire at that hole
+    writers = [i + 1 for i, h in enumerate(stream) if h in recs]
+
+    def without(hole):
+        return "".join(v for k, v in recs.items() if k != hole).encode()
+
+    def pinned(r):
+        return ([] if r is not None and _md5(r["out"]) == SCALE64_MD5
+                and len(r["out"]) == SCALE64_BYTES else
+                [f"output md5 {_md5(r['out']) if r else None} is not the "
+                 "pinned one"])
+
+    def rc_is(r, rc):
+        return [] if r["rc"] == rc else [f"rc {r['rc']} != {rc}"]
+
+    def killed(done, torn):
+        def check(run, res):
+            j = run["journal"] or {}
+            yield from rc_is(run, 57)
+            if j.get("version") != 2 or j.get("holes_done") != done:
+                yield f"killed journal {j} (want v2, holes_done {done})"
+            if (run["out_size"] > j.get("out_bytes", -1)) != torn:
+                yield (f"output {run['out_size']} B against journaled "
+                       f"{j.get('out_bytes')} B: torn tail should be {torn}")
+            yield from rc_is(res, 0)
+            yield from pinned(res)
+            if res["journal"]["holes_done"] != len(stream):
+                yield f"resumed journal {res['journal']}"
+        return check
+
+    def drained(run, res):
+        j = run["journal"] or {}
+        yield from rc_is(run, 75)
+        if "drained cleanly" not in run["stderr"]:
+            yield "no 'drained cleanly' line"
+        # the holes in flight at the signal finish, the rest wait
+        if not k <= j.get("holes_done", 0) < len(stream):
+            yield f"drained journal {j}"
+        yield from rc_is(res, 0)
+        yield from pinned(res)
+        if (res["final"]["holes_out"] + j.get("holes_emitted", 0)
+                != uninterrupted["holes_out"]):
+            yield (f"resumed holes_out {res['final']['holes_out']} + "
+                   f"drained holes_emitted {j.get('holes_emitted')} != "
+                   f"{uninterrupted['holes_out']}")
+
+    def disk_full(run, res):
+        j = run["journal"] or {}
+        yield from rc_is(run, 1)
+        if "No space left on device" not in run["stderr"]:
+            yield "no ENOSPC message"
+        if (j.get("holes_done") != writers[k - 1] - 1
+                or j.get("out_bytes") != run["out_size"]):
+            yield f"journal {j} against {run['out_size']} B on disk"
+        yield from rc_is(res, 0)
+        yield from pinned(res)
+
+    def counters(**want):
+        def check(run, res):
+            yield from rc_is(run, 0)
+            yield from pinned(run)
+            fin = run["final"] or {}
+            for k, (op, v) in want.items():
+                if not op(fin.get(k, 0), v):
+                    yield f"{k} = {fin.get(k)}"
+        return check
+
+    def dropped(position, counter):
+        hole = stream[position - 1]
+
+        def check(run, res):
+            yield from rc_is(run, 0)
+            if run["out"] != without(hole):
+                yield (f"output is not the pinned output less {hole}'s "
+                       "record")
+            if (run["final"] or {}).get(counter) != 1:
+                yield f"{counter} = {(run['final'] or {}).get(counter)}"
+            if counter == "holes_failed" and \
+                    f"hole {hole[1:-4]} failed" not in run["stderr"]:
+                yield f"stderr does not name {hole}"
+        return check
+
+    def refused(run, res):
+        yield from rc_is(run, 1)
+        if "invalid input stream" not in run["stderr"]:
+            yield "no 'invalid input stream' line"
+
+    k = CRASH_AT
+    fsync = {"CCSX_JOURNAL_FSYNC_S": "0"}
+
+    def watched(tag):
+        return ["--stall-timeout", "0.2", "--metrics",
+                os.path.join(WORK, f"crash_{tag}.jsonl")]
+
+    ge, eq, gt = operator.ge, operator.eq, operator.gt
+    # the first device step of this corpus is a one-request local-fill
+    # group, which the ladder replays at once (nothing to split): the
+    # second, the first slab (2 holes), is the first that can resplit.  The
+    # drain's window is pinned to 8 holes, so that the holes in flight at
+    # the signal are a part of the corpus (the adaptive window grows to
+    # all 64) and the resume has work to do
+    rows = [
+        ("write", f"write@{k}", fsync, [], True,
+         killed(writers[k - 1] - 1, True)),
+        ("journal", f"journal@{k}", fsync, [], True, killed(k - 1, True)),
+        ("rank_death", f"rank_death@{k}", fsync, [], True,
+         killed(k, False)),
+        ("sigterm", f"sigterm@{k}", fsync, ["--inflight", "8"], True,
+         drained),
+        ("disk_full", f"disk_full@{k}", fsync, [], True, disk_full),
+        ("device_oom", "device_oom@2", {}, [], False,
+         counters(oom_resplits=(ge, 1), failed_steps=(eq, 0))),
+        ("device_oom_all", "device_oom@1+", {}, [], False,
+         counters(failed_steps=(gt, 0), host_fallbacks=(gt, 0))),
+        ("compute", "compute@3", {}, [], False, dropped(3, "holes_failed")),
+        ("stall", "stall@1", {"CCSX_FAULT_STALL_S": "4"}, watched("stall"),
+         False, counters(stalls=(ge, 1))),
+        ("device_hang", "device_hang@1", {"CCSX_FAULT_HANG_S": "4"},
+         watched("hang"), False, counters(stalls=(ge, 1))),
+        ("salvage", "input_corrupt@5", {}, ["--salvage"], False,
+         dropped(5, "holes_corrupt")),
+        ("corrupt", "input_corrupt@5", {}, [], False, refused),
+    ]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = [pool.submit(crash_scenario, *row, bam, device)
+                for row in rows]
+        results = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    keys = ("holes_in", "holes_out", "holes_failed", "holes_corrupt",
+            "oom_resplits", "failed_steps", "host_fallbacks", "stalls",
+            "slabs", "pair_fills")
+    table = []
+    for res in results:
+        row = {"name": res["name"], "spec": res["spec"]}
+        for tag in ("run", "resumed"):
+            r = res[tag]
+            if r is None:
+                continue
+            row[tag] = {"rc": r["rc"], "seconds": r["seconds"],
+                        "md5": _md5(r["out"]), "bytes": len(r["out"]),
+                        "launches": r["launches"], "journal": r["journal"],
+                        "counters": {k: r["final"][k] for k in keys
+                                     if r["final"] and k in r["final"]}}
+        table.append(row)
+        print(f"[chip_smoke] crash and resume {res['name']} "
+              f"({res['spec']}): {json.dumps(row)}", flush=True)
+    print(f"[chip_smoke] phase 8 wall: {wall:.3f}s for {len(rows)} rows "
+          f"({sum(1 + bool(r['resumed']) for r in results)} CLI processes, "
+          "three at a time)", flush=True)
+    failed = {r["name"]: r["failed"] for r in results if r["failed"]}
+    if failed:
+        for r in results:
+            if r["failed"]:
+                sys.stderr.write(r["run"]["stderr"][-4000:])
+        raise AssertionError(f"crash and resume: {failed}")
+    return {"wall_s": wall, "rows": table}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1445,7 +1727,7 @@ def main(argv=None) -> int:
     # (lazily, on first launch): the cold run a user's first CLI call sees,
     # reported apart from the warm reruns
     groups = []
-    cold_s, _, _ = phase_scale64("cuda", record=groups)
+    cold_s, _, cold_driver = phase_scale64("cuda", record=groups)
     print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s "
           f"(recording its {len(groups)} local-fill groups)", flush=True)
     # the local fill's launch choices on the scale corpus's own group with
@@ -1472,6 +1754,7 @@ def main(argv=None) -> int:
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
     long_arms, long_prof = phase_long("cuda")
     recorder = phase_recorder("cuda", [r[0] for r in reps["batched"]])
+    crash = phase_crash("cuda", cold_driver)
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -1522,7 +1805,8 @@ def main(argv=None) -> int:
                                "min_identity": min(idents)},
                       "long_molecule": {"arms": long_arms,
                                         "profiles": long_prof},
-                      "flight_recorder": recorder}))
+                      "flight_recorder": recorder,
+                      "crash_resume": crash}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,312 @@
+"""The port's graceful drain (ccsx_tpu_torch/utils/drain.py), its ingest
+guard with salvage (pipeline/run.guarded_stream, ``--salvage``,
+``--max-record-bytes``) and its disk-full path, against the JAX package's.
+
+The JAX package's cases of the same names (tests/test_salvage.py: the
+record-size bound without salvage, salvage over a clean and a corrupt
+input, corrupt holes spending the failure budget, SIGTERM drain and
+resume in both drivers, the drain guard's signals, ENOSPC and resume, a
+failed journal settle), run on the port's CLI with ``--device cpu``.  One
+module-scoped JAX CLI process on the CPU gives the reference: its bytes
+and final counters under ``--salvage`` on the clean input, on injected
+corruption, on a FASTA with a bad hole name and on a BAM with a damaged
+BGZF block, which the port must give too.  Bytes and counters: exact
+equality.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+from ccsx_tpu import cli as jcli
+
+from ccsx_tpu_torch import cli, exitcodes
+from ccsx_tpu_torch.config import CcsConfig
+from ccsx_tpu_torch.io import bam as bam_mod
+from ccsx_tpu_torch.ops import encode as enc
+from ccsx_tpu_torch.utils import faultinject, synth
+from ccsx_tpu_torch.utils.drain import DrainGuard
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = ["-m", "1000", "--device", "cpu"]
+# counters both packages keep alike under --salvage
+SAME = ("holes_in", "holes_out", "holes_failed", "holes_filtered",
+        "holes_corrupt", "corrupt_reasons", "degraded")
+
+# runs the JAX CLI once per argv list (JSON in argv[1]) in one process,
+# disarmed before each; prints the rcs
+JAX_RUNNER = """
+import json, sys
+import jax
+jax.config.update('jax_platforms', 'cpu')
+from ccsx_tpu.cli import main
+from ccsx_tpu.utils import faultinject
+rcs = []
+for argv in json.loads(sys.argv[1]):
+    faultinject.disarm()
+    rcs.append(main(argv))
+print(json.dumps(rcs))
+"""
+
+
+@pytest.fixture(autouse=True)
+def _disarm():
+    faultinject.disarm()
+    yield
+    faultinject.disarm()
+
+
+def _final(path):
+    events = [json.loads(line) for line in open(path) if line.strip()]
+    assert events[-1]["event"] == "final"
+    return events[-1]
+
+
+def _by_hole(b: bytes) -> dict:
+    return {c.split("\n", 1)[0]: c for c in b.decode().split(">")[1:]}
+
+
+# the salvage cases: name -> (input key, extra flags); each runs through
+# both CLIs under --salvage --metrics
+CASES = {
+    "clean": ("fa", []),
+    "injected": ("fa", ["--inject-faults", "input_corrupt@2"]),
+    "bad_name": ("bad", []),
+    "bam_block": ("bam", []),
+}
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """3 holes of 500-bp templates as FASTA, the same FASTA with hole
+    101's name broken, and a BAM of the same holes in small BGZF blocks
+    with one block's deflate stream damaged; the JAX package's output
+    (fail-fast, and each CASES run under --salvage --metrics) from one JAX
+    CLI process."""
+    d = tmp_path_factory.mktemp("salvage")
+    rng = np.random.default_rng(0)
+    zs = [synth.make_zmw(rng, template_len=500, n_passes=5, movie="mv",
+                         hole=str(100 + h)) for h in range(3)]
+    paths = {"fa": d / "in.fa", "bad": d / "bad.fa", "bam": d / "in.bam"}
+    paths["fa"].write_text(synth.make_fasta(zs))
+    data = paths["fa"].read_bytes()
+    i = data.find(b">mv/101/")
+    paths["bad"].write_bytes(data[:i] + data[i:].replace(b"/", b"x", 2))
+    recs = [(name, enc.decode(p).encode(), None)
+            for z in zs for name, p in zip(z.names, z.passes)]
+    # ~2 kB blocks, so one damaged block costs one or two holes
+    payload = bam_mod.BGZF_BLOCK_PAYLOAD
+    bam_mod.BGZF_BLOCK_PAYLOAD = 2048
+    try:
+        bam_mod.write_bam(str(paths["bam"]), recs, bgzf=True)
+    finally:
+        bam_mod.BGZF_BLOCK_PAYLOAD = payload
+    raw = bytearray(paths["bam"].read_bytes())
+    starts, off = [], 0
+    while off < len(raw):
+        starts.append(off)
+        off += int.from_bytes(raw[off + 16:off + 18], "little") + 1
+    assert len(starts) >= 6
+    raw[starts[3] + 30] ^= 0xFF      # inside block 3's deflate data
+    paths["bam"].write_bytes(bytes(raw))
+    argvs = [["-A", "-m", "1000", "--batch", "on", str(paths["fa"]),
+              str(d / "jax_ref.fa")],
+             ["-m", "1000", "--batch", "on", str(paths["bam"]),
+              str(d / "jax_bam_failfast.fa")]]
+    for name, (key, flags) in CASES.items():
+        argvs.append((["-A"] if key != "bam" else []) + [
+            "-m", "1000", "--batch", "on", "--salvage", *flags,
+            "--metrics", str(d / f"jax_{name}.jsonl"), str(paths[key]),
+            str(d / f"jax_{name}.fa")])
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CCSX_SKIP_PROBE="1",
+               XLA_FLAGS="", PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", JAX_RUNNER, json.dumps(argvs)],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr
+    rcs = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rcs[0] == 0 and rcs[2:] == [0] * len(CASES)
+    return {"dir": d, "paths": paths, "bytes": (d / "jax_ref.fa").read_bytes(),
+            "bam_failfast_rc": rcs[1]}
+
+
+# ---- the record-size bound --------------------------------------------------
+
+
+def test_max_record_bytes_applies_without_salvage(tmp_path):
+    seq = b"ACGT" * 4000   # 16 kB record > the 8 kB bound
+    recs = [(f"mv/1/{i}_{i + 80}", seq, b"I" * len(seq)) for i in range(6)]
+    p = tmp_path / "t.bam"
+    bam_mod.write_bam(str(p), recs, bgzf=True)
+    cfg = CcsConfig(min_subread_len=1, is_bam=True, max_record_bytes=8192)
+    with pytest.raises(bam_mod.BamError) as ei:
+        list(bam_mod.read_bam_records(
+            str(p), max_record_bytes=cfg.max_record_bytes))
+    assert ei.value.reason == "bam_record_oversize"
+
+
+def test_max_record_bytes_bound_refused_like_the_jax_cli(tmp_path, capsys):
+    args = ["--max-record-bytes", "100", "x.bam", str(tmp_path / "y.fa")]
+    assert cli.main(args) == 1
+    port_err = capsys.readouterr().err
+    assert jcli.main(args) == 1
+    assert port_err == capsys.readouterr().err
+    assert "--max-record-bytes must be >= 4096" in port_err
+
+
+# ---- salvage through the CLI ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_salvage_equals_the_jax_package(name, ref, tmp_path):
+    """--salvage on a clean input is byte-identical to fail-fast; on
+    injected corruption, a bad hole name or a damaged BGZF block it drops
+    the damaged holes only, marked degraded — with the JAX package's
+    bytes and counters in every case."""
+    key, flags = CASES[name]
+    out, m = tmp_path / "o.fa", tmp_path / "m.jsonl"
+    argv = (["-A"] if key != "bam" else []) + PORT + [
+        "--batch", "on", "--salvage", *flags, "--metrics", str(m),
+        str(ref["paths"][key]), str(out)]
+    assert cli.main(argv) == exitcodes.RC_OK
+    d = ref["dir"]
+    assert out.read_bytes() == (d / f"jax_{name}.fa").read_bytes()
+    port, jax = _final(m), _final(d / f"jax_{name}.jsonl")
+    # corrupt_reasons and degraded are in an event only once set
+    assert {k: port.get(k) for k in SAME} == {k: jax.get(k) for k in SAME}
+    want = {"clean": {}, "injected": {"injected": 1},
+            "bad_name": {"zmw_bad_name": 1}}
+    if name in want:
+        assert port.get("corrupt_reasons", {}) == want[name]
+        r, s = _by_hole(ref["bytes"]), _by_hole(out.read_bytes())
+        lost = set(r) - set(s)
+        assert lost == (set() if name == "clean" else {"mv/101/ccs"})
+        assert all(s[k] == r[k] for k in s)
+    else:
+        assert port["holes_corrupt"] >= 1 and port["degraded"]
+        assert 0 < port["holes_out"] < 3
+
+
+def test_corrupt_input_fails_fast_without_salvage(ref, tmp_path, capsys):
+    """Without --salvage each damaged input ends the run at rc 1 through
+    the invalid-input path, no traceback — as the JAX package's does on
+    the damaged BAM."""
+    for key, flags in (("fa", ["--inject-faults", "input_corrupt@2"]),
+                       ("bad", []), ("bam", [])):
+        faultinject.disarm()
+        argv = (["-A"] if key != "bam" else []) + PORT + [
+            "--batch", "on", *flags, str(ref["paths"][key]),
+            str(tmp_path / f"{key}.fa")]
+        assert cli.main(argv) == exitcodes.RC_FATAL, key
+        err = capsys.readouterr().err
+        assert "Traceback" not in err
+        assert "invalid input stream" in err
+    assert ref["bam_failfast_rc"] == exitcodes.RC_FATAL
+
+
+def test_corrupt_holes_spend_failure_budget(ref, tmp_path):
+    rc = cli.main(["-A"] + PORT + [
+        "--batch", "on", "--salvage", "--max-failed-holes", "0",
+        "--inject-faults", "input_corrupt@2", str(ref["paths"]["fa"]),
+        str(tmp_path / "o.fa")])
+    assert rc == exitcodes.RC_FAILED_HOLES
+
+
+# ---- graceful drain ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch_arg,spec,extra", [
+    # a pinned window of one hole: admission genuinely stops early
+    ("on", "sigterm@1", ["--inflight", "1"]),
+    ("off", "sigterm@2", []),
+])
+def test_sigterm_drain_then_resume_byte_identical(batch_arg, spec, extra,
+                                                  ref, tmp_path,
+                                                  monkeypatch, capsys):
+    """SIGTERM at a retirement point: rc 75, a consistent and partial
+    journal, and a resume with the same command to the JAX package's
+    bytes."""
+    out, jp = tmp_path / "o.fa", tmp_path / "j.json"
+    monkeypatch.setenv("CCSX_JOURNAL_FSYNC_S", "0")
+    args = ["-A"] + PORT + ["--batch", batch_arg, *extra, "--journal",
+                            str(jp), str(ref["paths"]["fa"]), str(out)]
+    faultinject.arm(spec)
+    rc = cli.main(args)
+    faultinject.disarm()
+    assert rc == exitcodes.RC_INTERRUPTED == 75
+    assert "drained cleanly" in capsys.readouterr().err
+    j = json.loads(jp.read_text())
+    assert 0 < j["holes_done"] < 3, "the drain should leave work behind"
+    assert cli.main(args) == 0
+    assert out.read_bytes() == ref["bytes"]
+
+
+def test_drain_guard_sigint_and_restore():
+    before = signal.getsignal(signal.SIGINT)
+    g = DrainGuard.install()
+    try:
+        signal.raise_signal(signal.SIGINT)   # handler, no KeyboardInterrupt
+        assert g.requested
+    finally:
+        g.restore()
+    assert signal.getsignal(signal.SIGINT) is before
+
+
+def test_drain_guard_second_signal_restores():
+    before = signal.getsignal(signal.SIGTERM)
+    g = DrainGuard.install()
+    try:
+        signal.raise_signal(signal.SIGTERM)
+        assert g.requested
+        signal.raise_signal(signal.SIGTERM)  # restores previous handlers
+        assert signal.getsignal(signal.SIGTERM) is before
+    finally:
+        g.restore()
+
+
+def test_drain_guard_noop_off_main_thread():
+    res = {}
+
+    def t():
+        res["g"] = DrainGuard.install()
+
+    th = threading.Thread(target=t)
+    th.start()
+    th.join(timeout=10)
+    assert not th.is_alive()
+    assert res["g"].requested is False
+    res["g"].restore()   # no-op, must not raise
+
+
+# ---- disk full --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch_arg", ["on", "off"])
+def test_enospc_clean_rc1_then_resume(batch_arg, ref, tmp_path, monkeypatch,
+                                      capsys):
+    """ENOSPC at the writer: clean rc 1 (no traceback), the journal never
+    claims the unwritten record, and the resume gives the JAX package's
+    bytes."""
+    out, jp = tmp_path / "o.fa", tmp_path / "j.json"
+    monkeypatch.setenv("CCSX_JOURNAL_FSYNC_S", "0")
+    args = ["-A"] + PORT + ["--batch", batch_arg, "--journal", str(jp),
+                            str(ref["paths"]["fa"]), str(out)]
+    faultinject.arm("disk_full@2")
+    rc = cli.main(args)
+    faultinject.disarm()
+    err = capsys.readouterr().err
+    assert rc == exitcodes.RC_FATAL
+    assert "No space left on device" in err
+    assert "Traceback" not in err
+    j = json.loads(jp.read_text())
+    assert j["holes_done"] == 1
+    # the journaled offset points at durable bytes only
+    assert j["out_bytes"] == out.stat().st_size
+    assert cli.main(args) == 0
+    assert out.read_bytes() == ref["bytes"]

@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.consensus.whole_read",
             "ccsx_tpu_torch.utils.trace", "ccsx_tpu_torch.utils.metrics",
             "ccsx_tpu_torch.utils.blackbox",
-            "ccsx_tpu_torch.utils.run_metrics"} <= set(mods)
+            "ccsx_tpu_torch.utils.run_metrics",
+            "ccsx_tpu_torch.utils.faultinject",
+            "ccsx_tpu_torch.utils.journal", "ccsx_tpu_torch.utils.drain",
+            "ccsx_tpu_torch.utils.fingerprint"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -107,6 +110,28 @@ def test_stats_and_blackbox_run_without_torch_or_jax(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode == 0, r.stderr
         assert want in r.stdout
+
+
+def test_crash_safety_modules_import_without_torch():
+    """faultinject, journal, drain and fingerprint import with torch, jax
+    and the JAX package unimportable (torch only inside the device_oom
+    action), as the torch-free subcommands need of what they import."""
+    blocked = FORBIDDEN + ("torch",)
+    blocker = _BLOCKER.replace(repr(FORBIDDEN), repr(blocked))
+    code = blocker + (
+        "from ccsx_tpu_torch.utils import drain, faultinject, fingerprint, "
+        "journal\n"
+        "from ccsx_tpu_torch import exitcodes\n"
+        "faultinject.arm('compute@1')\n"
+        "try:\n    faultinject.fire('compute')\n"
+        "except RuntimeError as e:\n    print(e)\n"
+        "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
+        % (blocked,))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "injected compute fault" in r.stdout
 
 
 def test_resolve_device_cuda_raises_without_a_card():
