@@ -10,8 +10,9 @@ and for its CPU backend; ``--pass-buckets`` switches the batched driver
 from packed slabs to the bucketed (Z, P) grouping.  The tuning knobs keep
 the JAX package's spellings, defaults and error messages, and so do the
 recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
-``--profile``), ``--max-failed-holes`` and the crash-safety flags
-(``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``).
+``--profile``), ``--max-failed-holes``, the crash-safety flags
+(``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``),
+``--prep-threads`` (the batched driver's prep pool) and ``--bam``.
 
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
     python -m ccsx_tpu_torch.cli stats <trace/metrics JSONL>...
@@ -66,6 +67,8 @@ Port options (long):
                       rotating-band kernel; same output bytes either way.
                       With --device cpu each arm runs its plain version
 --fastq               write FASTQ with per-base vote-margin qualities
+--bam                 write unaligned BAM (qual fields + rq aux tag;
+                      implies --fastq's quality computation)
 --refine-iters <int>  speculative refinement rounds per window [2]
 --max-passes <int>    passes beyond this are dropped [32]
 --pass-buckets A,B,...
@@ -84,6 +87,11 @@ Port options (long):
 --window-growth {flush,grow}
                       at the largest window with no breakpoint: force a
                       flush, or keep growing like the reference [flush]
+--prep-threads <int>  overlapped prep plane: background threads ingest
+                      and run the orientation walk ahead of the admission
+                      window so host prep overlaps device compute; 0 =
+                      inline prep on the driver thread; output bytes
+                      identical either way [auto: min(4, cores/2)]
 --seed-device-min-t <int>
                       templates of at least this many bases seed on the
                       device (ops/seed_device.py), shorter ones on the
@@ -150,6 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--banded-impl", default="", dest="banded_impl",
                    choices=["", "scan", "pallas", "rotband"])
     p.add_argument("--fastq", action="store_true", dest="fastq")
+    p.add_argument("--bam", action="store_true", dest="bam_out")
+    p.add_argument("--prep-threads", type=int, default=None,
+                   dest="prep_threads", metavar="N")
     p.add_argument("--refine-iters", type=int, default=2)
     p.add_argument("--max-passes", type=int, default=32)
     p.add_argument("--pass-buckets", default=None, metavar="A,B,...")
@@ -211,6 +222,11 @@ def config_from_args(args) -> CcsConfig:
         print(f"Error: --slab-shape-ladder must be in [1, 8], got "
               f"{ladder}", file=sys.stderr)
         raise SystemExit(1)
+    prep_threads = args.prep_threads
+    if prep_threads is not None and not 0 <= prep_threads <= 64:
+        print(f"Error: --prep-threads must be in [0, 64], got "
+              f"{prep_threads}", file=sys.stderr)
+        raise SystemExit(1)
     min_t = args.seed_device_min_t
     if min_t is not None and min_t < 0:
         print(f"Error: --seed-device-min-t must be >= 0, got {min_t}",
@@ -251,7 +267,9 @@ def config_from_args(args) -> CcsConfig:
         exclude_holes=exclude,
         threads=max(args.threads, 1),
         verbose=args.verbose,
-        emit_quality=args.fastq,
+        emit_quality=args.fastq or args.bam_out,
+        bam_out=args.bam_out,
+        prep_threads=prep_threads,
         device=args.device,
         banded_impl=args.banded_impl,
         refine_iters=args.refine_iters,
@@ -297,6 +315,16 @@ def main(argv: Optional[list] = None) -> int:
         cfg = config_from_args(args)
     except SystemExit as e:
         return int(e.code or 0)
+    if args.bam_out and args.fastq:
+        print("Error: --fastq and --bam are mutually exclusive",
+              file=sys.stderr)
+        return exitcodes.RC_FATAL
+    if args.bam_out and args.journal is not None:
+        # the BGZF container is written whole at close, so a journal could
+        # never be resumed — refused up front
+        print("Error: --bam does not support --journal (the BAM "
+              "container cannot be appended on resume)", file=sys.stderr)
+        return exitcodes.RC_FATAL
     if args.inject_faults:
         from ccsx_tpu_torch.utils import faultinject
 

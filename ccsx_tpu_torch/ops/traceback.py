@@ -152,6 +152,11 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
     lead = torch.empty((P,), dtype=torch.int32, device=dev)
     if P:
         lib = _lib()
+        # one thread launches the walk: the launcher's lazy shared-memory
+        # attribute (`static bool attr`, csrc/traceback_walk.cu) is set
+        # without a lock.  In the batched driver that is the driver thread
+        # (the refine steps); the prep pool's pump launches only the local
+        # fill and the seed and screen steps
         rc = lib.ccsx_traceback_walk(
             moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
             qlens.data_ptr(), tlens.data_ptr(), tmax, max_ins,

@@ -1423,20 +1423,32 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     to cfg.zmw_microbatch.  Holes in flight plus holes waiting for ordered
     emission stay within 4x the cap.
 
+    Host prep runs on the background prep plane (pipeline/prep_pool.py)
+    unless cfg.prep_threads == 0: ingest, the orientation walk and its
+    pair alignments happen on pool threads concurrently with this loop's
+    refine sweeps, and the driver only pays ``t_prep_blocked`` when it has
+    nothing dispatchable.  Output bytes, ordered emission and the journal
+    invariant are the same either way (tests/test_torch_prep_pool.py).
+
     Counters, stage timers and progress events go into ``metrics``; the
     spans into the installed tracer (the caller's, utils/trace.py).  The
     first ``journal.holes_done`` holes were written by an earlier run: they
     are marked done at admission and launch nothing; every other retired
     hole advances the journal.  The caller's stream stops at a drain
     (run.guarded_stream), and in-flight holes then finish.  A kernel or
-    card fault raises cuda_ext.KernelError out of here, and a count-form
+    card fault raises cuda_ext.KernelError out of here (from the pool's
+    threads too, at the driver's next poll), and a count-form
     --max-failed-holes exceeded at a failed hole raises
     FailureBudgetExceeded."""
+    from ccsx_tpu_torch.pipeline.prep_pool import (PrepPool,
+                                                   resolve_prep_threads)
+
     explicit_window = inflight is not None and int(inflight) > 0
     cap = max(1, int(inflight) if explicit_window
               else int(cfg.zmw_microbatch))
     growth = max(2, int(cfg.chunk_growth))
     window = cap if explicit_window else max(1, cap // (growth * growth))
+    n_prep = resolve_prep_threads(cfg)
     executor = BatchExecutor(cfg, device, metrics)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
                                  device=device, metrics=metrics,
@@ -1445,9 +1457,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     resume = journal.holes_done
     active: List[_Hole] = []
     finished: Dict[int, _Hole] = {}
-    next_idx = 0       # next hole index to admit
+    next_idx = 0       # next hole index to admit (inline prep)
     next_emit = 0      # next hole index to write
     exhausted = False
+    pool = None        # PrepPool, constructed inside the try below
 
     def emit_ready():
         nonlocal next_emit
@@ -1455,6 +1468,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
             h = finished.pop(next_emit)
             if h.resumed:
                 next_emit += 1
+                if pool is not None:
+                    pool.release()
                 continue
             wrote = False
             if h.err is not None:
@@ -1478,67 +1493,132 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
             faultinject.fire("sigterm")
             metrics.tick()
             next_emit += 1
+            if pool is not None:
+                pool.release()  # free one slot of ingest-ahead budget
 
-    while True:
-        while (not exhausted and len(active) < window
-               and next_idx - next_emit < 4 * cap):
-            try:
-                with metrics.timer("ingest"), \
-                        trace.span("ingest_hole", cat="ingest"):
-                    z = next(stream)
-                    faultinject.fire("ingest")
-            except StopIteration:
-                exhausted = True
-                break
-            metrics.holes_in += 1
-            h = _Hole(idx=next_idx, zmw=z)
-            next_idx += 1
-            if metrics.holes_in <= resume:
-                h.done = h.resumed = True
+    def admit(h):
+        if h.done:
+            finished[h.idx] = h
+        else:
+            active.append(h)
+
+    try:
+        if n_prep > 0:
+            # the overlapped prep plane: ingest and the orientation walk
+            # move to background threads (constructed after the caller's
+            # tracer, so its spans record, and inside the try, so its
+            # threads cannot outlive the finally)
+            pool = PrepPool(stream, cfg, pair_executor, metrics,
+                            threads=n_prep, max_outstanding=4 * cap,
+                            resume=resume)
+        while True:
+            if pool is not None:
+                # drain whatever prep has finished, up to the window —
+                # never blocking here: with device work pending, the
+                # sweep must run while prep keeps working in background
+                while len(active) < window:
+                    h = pool.poll()
+                    if h is None:
+                        break
+                    admit(h)
             else:
-                # inline prep is all critical path: its own stage and
-                # blocked
+                # inline prep (--prep-threads 0): admit up to the window
+                while (not exhausted and len(active) < window
+                       and next_idx - next_emit < 4 * cap):
+                    try:
+                        with metrics.timer("ingest"), \
+                                trace.span("ingest_hole", cat="ingest"):
+                            z = next(stream)
+                            faultinject.fire("ingest")
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    metrics.holes_in += 1
+                    h = _Hole(idx=next_idx, zmw=z)
+                    next_idx += 1
+                    if metrics.holes_in <= resume:
+                        h.done = h.resumed = True
+                    else:
+                        # inline prep is all critical path: its own stage
+                        # and blocked
+                        with metrics.timer("prep"), \
+                                metrics.timer("prep_blocked"), \
+                                trace.span("prep_hole", cat="prep",
+                                           hole=str(z.hole)):
+                            _start_hole(h, cfg)
+                    admit(h)
+            admitted_full = len(active) >= window
+            emit_ready()
+            if not active:
+                if pool is None:
+                    if exhausted:
+                        break
+                    continue
+                if pool.drained():
+                    break
+                # nothing dispatchable: the driver is blocked on prep.
+                # Accumulate while prep keeps delivering (sweeping the
+                # first hole the instant it appears would fragment the
+                # sweep into near-empty slabs); the moment prep pauses
+                # with work in hand, or the window fills, sweep it
+                while len(active) < window and not pool.drained():
+                    # only the wait itself books as blocked — emission
+                    # has its own stage
+                    with metrics.timer("prep_blocked"):
+                        h = pool.get(timeout=0.05 if active else 1.0)
+                    # emit as we accumulate: instantly-done holes
+                    # (resumed/skipped) must retire here to keep releasing
+                    # ingest budget, or a done stretch longer than the 4x
+                    # bound live-locks against the pool
+                    emit_ready()
+                    if h is None:
+                        if active:
+                            break
+                        metrics.heartbeat()
+                        continue
+                    admit(h)
+                # a window filled while blocked still earns growth
+                admitted_full = len(active) >= window
+                metrics.heartbeat()
+                if not active:
+                    continue
+            # one batched sweep over every pending request, split by kind
+            is_pair = [isinstance(h.req, (prep_mod.PairRequest,
+                                          prep_mod.PairBatch))
+                       for h in active]
+            pair_holes = [h for h, p in zip(active, is_pair) if p]
+            round_holes = [h for h, p in zip(active, is_pair) if not p]
+            if pair_holes:
+                # inline prep only in practice (the pool finishes the walk
+                # before handing a hole over); it blocks the driver
                 with metrics.timer("prep"), metrics.timer("prep_blocked"), \
-                        trace.span("prep_hole", cat="prep",
-                                   hole=str(z.hole)):
-                    _start_hole(h, cfg)
-            if h.done:
-                finished[h.idx] = h
-            else:
-                active.append(h)
-        admitted_full = len(active) >= window
-        emit_ready()
-        if not active:
-            if exhausted:
-                break
-            continue
-        # one batched sweep over every pending request, split by kind
-        is_pair = [isinstance(h.req, (prep_mod.PairRequest,
-                                      prep_mod.PairBatch)) for h in active]
-        pair_holes = [h for h, p in zip(active, is_pair) if p]
-        round_holes = [h for h, p in zip(active, is_pair) if not p]
-        if pair_holes:
-            with metrics.timer("prep"), metrics.timer("prep_blocked"), \
-                    trace.span("pair_sweep", cat="prep", n=len(pair_holes)):
-                for h, r in zip(pair_holes, pair_executor.run(
-                        [h.req for h in pair_holes])):
-                    _feed_hole(h, r)
-        if round_holes:
-            with metrics.timer("compute"), \
-                    trace.span("refine_sweep", cat="compute",
-                               n=len(round_holes)):
-                for h, rr in zip(round_holes, executor.run(
-                        [h.req for h in round_holes])):
-                    _feed_hole(h, rr)
-        still: List[_Hole] = []
-        for h in active:
-            if h.done:
-                finished[h.idx] = h
-            else:
-                still.append(h)
-        active = still
-        emit_ready()
-        if not explicit_window and admitted_full and window < cap:
-            window = _grow_window(window, cap, growth)
-        # interval-driven progress events while nothing has retired yet
-        metrics.heartbeat()
+                        trace.span("pair_sweep", cat="prep",
+                                   n=len(pair_holes)):
+                    for h, r in zip(pair_holes, pair_executor.run(
+                            [h.req for h in pair_holes])):
+                        _feed_hole(h, r)
+            if round_holes:
+                with metrics.timer("compute"), \
+                        trace.span("refine_sweep", cat="compute",
+                                   n=len(round_holes)):
+                    for h, rr in zip(round_holes, executor.run(
+                            [h.req for h in round_holes])):
+                        _feed_hole(h, rr)
+            still: List[_Hole] = []
+            for h in active:
+                if h.done:
+                    finished[h.idx] = h
+                else:
+                    still.append(h)
+            active = still
+            emit_ready()
+            if not explicit_window and admitted_full and window < cap:
+                window = _grow_window(window, cap, growth)
+            # interval-driven progress events while nothing has retired yet
+            metrics.heartbeat()
+    finally:
+        # stop the prep plane before the caller closes the tracer (its
+        # workers and pump write prep spans and metrics): an error path
+        # may leave holes in prep — dropped, the caller's rc says why
+        if pool is not None:
+            pool.close()

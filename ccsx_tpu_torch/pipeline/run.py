@@ -11,6 +11,12 @@ which it ends with RC_FAILED_HOLES.  A fault of the card or of a kernel is
 not a bad hole: it ends the run with RC_FATAL (on the card, the kernels are
 built before the first hole for the same reason).
 
+Host planes, the JAX package's at its places: the native C++ reader
+(native/, a prefetch thread that parses, groups and filters) serves every
+real input path while its library loads, and the Python readers serve
+stdin and the fallback; the native async writer serves a real output path
+of a run that is not journaled, ``--bam`` the BAM writer.
+
 Crash safety, the JAX package's planes at its places: ``--journal`` resumes
 a killed run to the same bytes (utils/journal.py; the writer is
 synchronous and counts its bytes), SIGTERM/SIGINT drain it to
@@ -48,14 +54,29 @@ from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
 def open_zmw_stream(path: str, cfg: CcsConfig, metrics=None):
     """Filtered ZMW iterator for BAM or FASTA/Q input ('-' = stdin).
-    Opens the file eagerly, so an unreadable path fails here.  ``metrics``
-    receives the filtered-hole accounting.
 
-    ``cfg.salvage`` selects salvage-mode ingest: classified corruption is
-    booked into Metrics (holes_corrupt + corrupt_reasons + the degraded
-    mark) and resynced past instead of killing the stream
-    (io/corruption.py).  The JAX package's native-reader branch is not
-    ported: the Python readers serve every input."""
+    Uses the native C++ streamer (parser + group-by-hole + filters in one
+    pass on a prefetch thread, ccsx_tpu_torch/native) when the library is
+    available and the input is a real path; otherwise the pure-Python
+    parsers.  Opens the file eagerly, so an unreadable path fails here.
+    ``metrics`` receives the filtered-hole accounting from either path:
+    per-hole live on the Python path, reason-bucketed at EOF from the
+    native reader.
+
+    ``cfg.salvage`` selects salvage-mode ingest on whichever stack serves:
+    classified corruption is booked into Metrics (holes_corrupt +
+    corrupt_reasons + the degraded mark) and resynced past instead of
+    killing the stream (io/corruption.py)."""
+    from ccsx_tpu_torch import native
+
+    if path != "-" and native.available():
+        from ccsx_tpu_torch.native.io import (salvage_supported,
+                                              stream_zmws_prefetch)
+
+        if not cfg.salvage or salvage_supported():
+            return stream_zmws_prefetch(path, cfg, metrics=metrics)
+        # a library without the salvage entry points: fall through to the
+        # pure-Python salvage readers
     sink = SalvageSink(metrics, cfg.max_record_bytes) if cfg.salvage \
         else None
     if cfg.is_bam:
@@ -151,11 +172,30 @@ class _PyWriter:
             self._f.flush()
 
 
-def open_writer(path: str, append: bool = False) -> _PyWriter:
-    """The output writer ('-' = stdout); ``append`` continues a journaled
-    file from its current size.  Synchronous and flushable with byte
-    accounting, as the journal's crash contract needs (the record must be
-    durable before the cursor claims it)."""
+def open_writer(path: str, append: bool, bam: bool = False,
+                journaled: bool = False):
+    """Async native writer for real paths; Python writer for stdout;
+    buffered BAM writer under --bam.  ``append`` continues a journaled
+    file from its current size.
+
+    stdout stays Python-level so redirection works.  ``journaled`` runs
+    also use the Python writer: the journal's crash contract needs a
+    synchronous, flushable stream with byte accounting (the record must be
+    durable before the journal cursor claims it), which the async native
+    writer cannot order."""
+    from ccsx_tpu_torch import native
+
+    if bam:
+        if path == "-":
+            raise OSError("--bam output requires a file path, not stdout")
+        if append:
+            raise OSError("--bam output does not support --journal resume "
+                          "(the BGZF container cannot be appended)")
+        return bam_mod.BamWriter(path)
+    if path != "-" and native.available() and not journaled:
+        from ccsx_tpu_torch.native.io import NativeFastaWriter
+
+        return NativeFastaWriter(path, append=append)
     if path == "-":
         return _PyWriter(sys.stdout, own=False)
     start = os.path.getsize(path) if append and os.path.exists(path) else 0
@@ -276,6 +316,13 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         print(f"Error: {e}", file=sys.stderr)
         return exitcodes.RC_FATAL
     batched = batch == "on" or (batch == "auto" and device.type == "cuda")
+    if cfg.prep_threads and not batched:
+        # the per-hole path already overlaps prep with compute through its
+        # -j worker pool (each worker preps + computes whole holes); the
+        # prep plane is a batched-scheduler construct
+        print("[ccsx-tpu-torch] --prep-threads has no effect with --batch "
+              "off (use -j; the per-hole path overlaps prep per worker)",
+              file=sys.stderr)
     if device.type == "cuda":
         # both drivers: a kernel that cannot build ends the run before
         # the first hole
@@ -289,7 +336,7 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     metrics = RunMetrics(verbose=cfg.verbose, stream=cfg.metrics_stream())
     try:
         stream = open_zmw_stream(in_path, cfg, metrics)
-    except OSError as e:
+    except (OSError, RuntimeError) as e:
         print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
         metrics.close_stream()  # no final event for a non-run
         return exitcodes.RC_FATAL
@@ -301,7 +348,8 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     metrics.holes_failed = journal.holes_failed
     metrics.holes_prior_emitted = journal.holes_emitted
     try:
-        writer = open_writer(out_path, append=bool(journal.holes_done))
+        writer = open_writer(out_path, append=bool(journal.holes_done),
+                             bam=cfg.bam_out, journaled=bool(journal_path))
     except OSError as e:
         print(f"Cannot open file for write! ({e})", file=sys.stderr)
         metrics.close_stream()
@@ -346,9 +394,10 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         print(f"Error: device failure, run aborted: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
     except (bam_mod.BamError, zmw.InvalidZmwName, ValueError,
-            # damaged gzip/BGZF under the fail-fast readers (the JAX
-            # package's native reader classifies these; the port reads
-            # every input through the Python readers)
+            # damaged gzip/BGZF under the fail-fast Python readers (the
+            # native reader classifies these as NativeStreamError, a
+            # ValueError); they serve stdin and a library that will not
+            # build
             zlib.error, EOFError, gzip.BadGzipFile) as e:
         print(f"Error: invalid input stream: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL

@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (ccsx_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
-                          [--kernels-only]
+                          [--kernels-only | --host-planes-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build every kernel from csrc/ (one nvcc per source, in parallel);
+2. build every kernel from csrc/ (one nvcc per source, in parallel), and
+   the native IO library (native/io_native.cpp, one g++): its state
+   (built or loaded, seconds, ``g++ --version``, ``build_error()``);
 3. each kernel against its plain PyTorch version on the same CUDA inputs at
    the widths the main path gives it (global fill: 32 passes, qmax 2048,
    tmax 2560, plus an edge batch with a >4096-row final-flush window and
@@ -30,11 +32,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--parent-rotband``, the parent commit's walk and rotating-band fill
    against this one's in turns;
 4. the main path: the 64-hole scale corpus (synthesized from rng(42))
-   through the port's CLI on the card in four arms — the default (the
-   batched packed driver), ``--banded-impl rotband``, ``--pass-buckets
-   4,8,16,32`` (the bucketed (Z, P) driver) and ``--batch off`` — twice
-   each, alternating, and the bucketed arm once more under ``--banded-impl
-   rotband``.  Each output must have the JAX package's pinned md5, no
+   through the port's CLI on the card in five arms — the batched packed
+   driver with inline prep (``--prep-threads 0``, as every run of phases 4
+   to 8 but the pooled one, so that launch counts, spans and fault
+   positions follow a fixed schedule), the default flags (the prep pool
+   on; its launch counts may differ between reruns), ``--banded-impl
+   rotband``, ``--pass-buckets 4,8,16,32`` (the bucketed (Z, P) driver) and
+   ``--batch off`` — twice each, alternating, and the bucketed arm once
+   more under ``--banded-impl rotband``.  Each output must have the JAX package's pinned md5, no
    device step may fail over to its per-request replay, the driver's
    counters must show packed slabs and no bucketed group in a packed run
    and the reverse in a bucketed one, and the launch counts (reset just
@@ -89,7 +94,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``device_hang`` (4 s, past the watchdog's grace) to the pinned md5;
    ``compute@3`` and ``--salvage input_corrupt@5`` to the pinned output
    less that hole's record; ``input_corrupt@5`` without salvage to rc 1.
-   Every run must launch the global fill, the local fill and the walk.
+   Every run must launch the global fill, the local fill and the walk;
+9. the host planes: in-process untraced ``--metrics`` runs, alternated,
+   two of each — the scale corpus under inline prep through the native
+   reader and through the Python reader (``native.available`` patched to
+   False), under ``--prep-threads 1``, ``3`` and auto (the default), and
+   under ``--bam`` (read back: the pinned FASTA's names and sequences,
+   every ``rq`` in (0.8, 1]); the long-molecule corpus with the pool on
+   in its default and its screen arm (its md5; the device seed and the
+   device screen steps launched from the pump thread); and a
+   gzipped FASTQ cut short (holes 100 and 101, md5 prefix ``2feaead356``,
+   one ``gzip_truncated``).  Each run reports its wall and its stage
+   split; the scale runs must give the pinned md5.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -129,6 +145,13 @@ LONG_COUNTS = {"pair_alignments": 28, "pairs_screened": 55,
 LONG_ARMS = {"default": [], "screen": ["--seed-device-min-t", "0"],
              "host": ["--prefilter", "off", "--seed-device-min-t", "0"]}
 BUCKETS = ["--pass-buckets", "4,8,16,32"]
+# inline prep: the batched driver's fixed schedule (launch counts, spans and
+# fault positions do not depend on the prep pool's threads)
+INLINE = ["--prep-threads", "0"]
+# a gzipped FASTQ cut short (see phase_host_planes): the JAX CLI's md5
+# prefix and holes
+GZ_CUT_MD5 = "2feaead356"
+GZ_CUT_HOLES = ["mv/100/ccs", "mv/101/ccs"]
 
 # H100 SXM peaks used for the bounds: HBM rate from NVIDIA's data sheet; the
 # INT32 rate is 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (Hopper white
@@ -957,7 +980,7 @@ def phase_hifi(device, n_holes=8, tlen=15000, min_identity=0.99,
         f.write(synth.make_fasta(zs))
     bases_in = sum(len(p) for z in zs for p in z.passes)
     t0 = time.perf_counter()
-    rc = cli.main(["-A", "--device", device, src, out])
+    rc = cli.main(["-A", "--device", device, *INLINE, src, out])
     secs = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"CLI exited {rc} on the HiFi-size holes")
@@ -1040,7 +1063,7 @@ def phase_long(device):
     for arm, extra in LONG_ARMS.items():
         out = os.path.join(WORK, f"long_{arm}.fa")
         secs, launches, driver = run_cli(
-            [*LONG_FLAGS, "--device", device, *extra, fa, out],
+            [*LONG_FLAGS, "--device", device, *INLINE, *extra, fa, out],
             f"{extra} on the long-molecule corpus",
             groups if arm == "default" else None)
         md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
@@ -1070,7 +1093,7 @@ def phase_long(device):
                              f"JAX package's {LONG_COUNTS}")
     arms["default"]["local_fill_check"] = check_local_group(groups)
     profiles = {arm: profile_cli(
-        [*LONG_FLAGS, "--device", device, *LONG_ARMS[arm], fa,
+        [*LONG_FLAGS, "--device", device, *INLINE, *LONG_ARMS[arm], fa,
          os.path.join(WORK, f"long_{arm}_prof.fa")],
         f"the long-molecule corpus, {arm} arm") for arm in ("default",
                                                              "screen")}
@@ -1162,7 +1185,8 @@ def traced_scale64(device, tag):
     undo = count_rounds(rounds)
     try:
         secs, launches, driver = run_cli(
-            ["--device", device, "--trace", t, "--metrics", m, bam, out],
+            ["--device", device, *INLINE, "--trace", t, "--metrics", m,
+             bam, out],
             f"traced ({tag}) on the scale corpus")
     finally:
         undo()
@@ -1290,7 +1314,7 @@ def blackbox_run(device):
     os.environ[blackbox.ENV_DIR] = bb_dir
     blackbox.reset()
     try:
-        secs, _, _ = run_cli(["--device", device,
+        secs, _, _ = run_cli(["--device", device, *INLINE,
                               os.path.join(WORK, "in64.bam"), out],
                              "under CCSX_BLACKBOX on the scale corpus")
     finally:
@@ -1323,7 +1347,7 @@ def profile_flag_run(device):
     pdir = os.path.join(WORK, "profile")
     shutil.rmtree(pdir, ignore_errors=True)
     secs, launches, _ = run_cli(
-        ["--device", device, "--profile", pdir,
+        ["--device", device, *INLINE, "--profile", pdir,
          os.path.join(WORK, "in64.bam"), os.path.join(WORK, "prof.fa")],
         "under --profile on the scale corpus")
     files = glob.glob(os.path.join(pdir, "*.pt.trace.json"))
@@ -1366,7 +1390,7 @@ def phase_recorder(device, untraced):
             runs["traced"].append(rec)
         else:
             m = os.path.join(WORK, f"rec_u{i}_metrics.jsonl")
-            secs = phase_scale64(device, ["--metrics", m])[0]
+            secs = phase_scale64(device, [*INLINE, "--metrics", m])[0]
             runs["untraced"].append({"seconds": secs, "final": [
                 e for e in read_jsonl(m) if e["event"] == "final"][0]})
     first = runs["traced"][0]
@@ -1455,7 +1479,7 @@ def crash_scenario(name, spec, env, extra, resume, check, bam, device):
     for f in (out, jp):
         if os.path.exists(f):
             os.remove(f)
-    base = ["--device", device, *extra]
+    base = ["--device", device, *INLINE, *extra]
     if resume:
         base += ["--journal", jp]
     base += [bam, out]
@@ -1668,6 +1692,238 @@ def phase_crash(device, uninterrupted):
     return {"wall_s": wall, "rows": table}
 
 
+# ---- phase 9: the host planes -------------------------------------------
+
+
+def native_state():
+    """Build (or load) the native IO library and report it: built or
+    loaded, the build seconds, ``g++ --version``'s first line and
+    ``build_error()``."""
+    from ccsx_tpu_torch import native
+
+    try:
+        gxx = subprocess.run([os.environ.get("CXX", "g++"), "--version"],
+                             capture_output=True, text=True,
+                             timeout=30).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError) as e:
+        gxx = f"unavailable ({e})"
+    ok = native.available()
+    rec = {"available": ok, **native.load_state, "gxx": gxx,
+           "build_error": native.build_error()}
+    print(f"[chip_smoke] native IO library: {rec}", flush=True)
+    return rec
+
+
+def zlib_probe():
+    """None when a two-line zlib program builds and links here, else the
+    compiler's first line: the one reason phase 9 may run without the
+    native reader."""
+    src = os.path.join(WORK, "zlib_probe.cpp")
+    with open(src, "w") as f:
+        f.write("#include <zlib.h>\n"
+                "int main() { return zlibVersion() == 0; }\n")
+    try:
+        r = subprocess.run([os.environ.get("CXX", "g++"), "-o",
+                            src[:-4], src, "-lz"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"no compiler: {e}"
+    if r.returncode == 0:
+        return None
+    return (r.stderr or r.stdout).strip().splitlines()[0]
+
+
+def host_plane_run(device, extra, tag, src=None, out_ext="fa"):
+    """One untraced --metrics run of the scale corpus (or ``src``) through
+    run_cli; returns (seconds, launches, final metrics event, output
+    path)."""
+    src = src or os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, f"hp_{tag}.{out_ext}")
+    m = os.path.join(WORK, f"hp_{tag}_metrics.jsonl")
+    if os.path.exists(m):
+        os.remove(m)
+    secs, launches, _ = run_cli(["--device", device, *extra, "--metrics", m,
+                                 src, out], f"{tag} {list(extra)}")
+    fin = [e for e in read_jsonl(m) if e["event"] == "final"][0]
+    return secs, launches, fin, out
+
+
+def bam_readback(path):
+    """The --bam output against the pinned FASTA: the same names and
+    sequences in order, every rq in (0.8, 1]."""
+    from ccsx_tpu_torch.io import bam as bam_mod
+    from ccsx_tpu_torch.io import fastx
+
+    want = [(r.name, r.seq) for r in
+            fastx.read_fastx(os.path.join(WORK, "out64.fa"))]
+    recs = list(bam_mod.read_bam_records(path, with_aux=True))
+    got = [(r.name, r.seq) for r, _ in recs]
+    rq = [aux["rq"][1] for _, aux in recs]
+    problems = []
+    if got != want:
+        problems.append(f"{len(got)} records, not the pinned FASTA's "
+                        f"{len(want)} names and sequences")
+    if not rq or not all(0.8 < q <= 1.0 for q in rq):
+        problems.append(f"rq out of (0.8, 1]: min {min(rq, default=None)}")
+    return {"records": len(recs), "rq_min": min(rq, default=None)}, problems
+
+
+def gz_cut_input():
+    """4 holes of 500-bp templates from rng(0) as FASTQ (quality 'I'),
+    gzipped whole and cut to its first 2,231 of 3,347 bytes."""
+    import gzip
+
+    from ccsx_tpu_torch.ops import encode as enc
+    from ccsx_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(0)
+    zs = [synth.make_zmw(rng, template_len=500, n_passes=5, movie="mv",
+                         hole=str(100 + h)) for h in range(4)]
+    fq = "".join(f"@{n}\n{enc.decode(p)}\n+\n{'I' * len(p)}\n"
+                 for z in zs for n, p in zip(z.names, z.passes)).encode()
+    blob = gzip.compress(fq)
+    if len(blob) != 3347:
+        raise AssertionError(f"the gzipped FASTQ is {len(blob)} bytes, not "
+                             "3,347")
+    path = os.path.join(WORK, "cut.fq.gz")
+    with open(path, "wb") as f:
+        f.write(blob[:2231])
+    return path
+
+
+def phase_host_planes(device, state, long_inline_s=None):
+    """Phase 9, the host planes on the card: the scale corpus under inline
+    prep through the native and the Python reader, under --prep-threads 1,
+    3 and auto, and under --bam; the long-molecule corpus with the pool on;
+    alternated, two of each, untraced under --metrics; then the gzipped
+    FASTQ cut short.  ``state`` is native_state()'s record;
+    ``long_inline_s`` holds phase 6's walls of the default and the screen
+    arm (inline prep), printed beside the pooled ones."""
+    from ccsx_tpu_torch import native
+    from ccsx_tpu_torch.pipeline.prep_pool import resolve_prep_threads
+    from ccsx_tpu_torch.config import CcsConfig
+    from ccsx_tpu_torch.utils import synth
+
+    missing = None
+    if not state["available"]:
+        missing = zlib_probe()
+        if missing is None:
+            raise AssertionError("the native IO library did not load though "
+                                 f"zlib builds here: {state}")
+        print(f"[chip_smoke] native: unavailable ({missing}); the reader "
+              "A/B and truncated-gzip rows are not run", flush=True)
+    fa_long = os.path.join(WORK, "long.fa")
+    if not os.path.exists(fa_long):
+        synth.make_long_fasta(fa_long, 4, 50000, 8, 11)
+    arms = {"native_0": INLINE, "python_0": INLINE,
+            "pool_1": ["--prep-threads", "1"],
+            "pool_3": ["--prep-threads", "3"], "pool_auto": [],
+            "bam": ["--bam"], "long_pooled": LONG_FLAGS,
+            "long_screen_pooled": LONG_FLAGS + LONG_ARMS["screen"]}
+    if missing:
+        arms.pop("native_0")
+        arms.pop("python_0")
+    real = native.available
+    runs = {k: [] for k in arms}
+    for rep_i in range(2):   # alternating: a drift falls on every arm alike
+        for arm, extra in arms.items():
+            tag = f"{arm}_{rep_i}"
+            if arm == "python_0":
+                native.available = lambda: False
+            try:
+                if arm.startswith("long"):
+                    secs, launches, fin, out = host_plane_run(
+                        device, extra, tag, src=fa_long)
+                else:
+                    secs, launches, fin, out = host_plane_run(
+                        device, extra, tag,
+                        out_ext="bam" if arm == "bam" else "fa")
+            finally:
+                native.available = real
+            data = open(out, "rb").read()
+            md5 = hashlib.md5(data).hexdigest()
+            rec = {"seconds": secs, "bytes": len(data), "md5": md5,
+                   "launches": launches, **stage_split(fin),
+                   "prep_share": fin["prep_share"],
+                   "prep_queue_peak": fin["prep_queue_peak"],
+                   "prep_threads": fin["prep_threads"],
+                   "ingest_share": fin["ingest_s"] / fin["elapsed_s"]}
+            for k in ("seed_steps", "screen_steps", "pairs_seeded_device",
+                      "pairs_screened", "pair_alignments", "windows"):
+                rec[k] = fin[k]
+            problems = []
+            if arm == "bam":
+                rb, problems = bam_readback(out)
+                rec.update(rb)
+            elif arm.startswith("long"):
+                # the pump thread launched the device seed step (default
+                # arm) or the device screen step (screen arm)
+                if md5 != LONG_MD5:
+                    problems.append(f"md5 {md5} != pinned {LONG_MD5}")
+                step = "screen_steps" if "screen" in arm else "seed_steps"
+                if fin[step] <= 0 or launches["banded_local"] <= 0:
+                    problems.append(f"no {step} or no local fill ran")
+            elif md5 != SCALE64_MD5 or len(data) != SCALE64_BYTES:
+                problems.append(f"md5 {md5}/{len(data)} != pinned")
+            if not arm.startswith("long") and any(
+                    launches[k] <= 0 for k in CRASH_KERNELS):
+                problems.append(f"launches {launches} miss a kernel of the "
+                                "default arm")
+            want_threads = {"native_0": 0, "python_0": 0, "pool_1": 1,
+                            "pool_3": 3}.get(
+                arm, resolve_prep_threads(CcsConfig()))
+            if fin["prep_threads"] != want_threads:
+                problems.append(f"prep_threads {fin['prep_threads']} != "
+                                f"{want_threads}")
+            runs[arm].append(rec)
+            print(f"[chip_smoke] host planes {tag}: {secs:.3f}s, "
+                  f"{len(data)} B, md5 {md5}, ingest "
+                  f"{rec['ingest_s']:.4f}s ({100 * rec['ingest_share']:.1f}%)"
+                  f", prep {rec['prep_s']:.4f}s, prep_blocked "
+                  f"{rec['prep_blocked_s']:.4f}s, prep_share "
+                  f"{rec['prep_share']}, queue peak "
+                  f"{rec['prep_queue_peak']}, launches {launches}",
+                  flush=True)
+            if problems:
+                raise AssertionError(f"host planes {tag}: {problems}")
+    gz = None
+    if not missing:
+        path = gz_cut_input()
+        secs, _, fin, out = host_plane_run(
+            device, ["-A", "-m", "400", "--batch", "on", "--salvage"],
+            "gz_cut", src=path)
+        data = open(out, "rb").read()
+        names = [ln[1:] for ln in data.decode().splitlines()
+                 if ln.startswith(">")]
+        gz = {"seconds": secs, "holes": names,
+              "md5": hashlib.md5(data).hexdigest(),
+              "holes_in": fin["holes_in"],
+              "corrupt_reasons": fin.get("corrupt_reasons")}
+        print(f"[chip_smoke] host planes, gzipped FASTQ cut short: {gz}",
+              flush=True)
+        if (names != GZ_CUT_HOLES or not gz["md5"].startswith(GZ_CUT_MD5)
+                or gz["corrupt_reasons"] != {"gzip_truncated": 1}):
+            raise AssertionError(f"truncated gzip FASTQ: {gz}")
+
+    def med(arm, key):
+        return statistics.median(r[key] for r in runs[arm])
+
+    summary = {arm: {k: med(arm, k) for k in (
+        "seconds", "ingest_s", "ingest_share", "prep_s", "prep_blocked_s",
+        "prep_share", "compute_s", "elapsed_s")} for arm in runs}
+    for arm, v in summary.items():
+        print(f"[chip_smoke] host planes median {arm}: " + ", ".join(
+            f"{k} {x:.4f}" for k, x in v.items()), flush=True)
+    print("[chip_smoke] long-molecule walls: pooled " + " / ".join(
+        f"{r['seconds']:.3f}" for r in runs["long_pooled"])
+        + " s (default arm), " + " / ".join(
+            f"{r['seconds']:.3f}" for r in runs["long_screen_pooled"])
+        + f" s (screen arm); phase 6 inline {long_inline_s}", flush=True)
+    return {"native": state, "native_missing": missing,
+            "runs": runs, "median": summary, "gz_cut": gz,
+            "long_inline_s": long_inline_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1685,6 +1941,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (the kernels against their "
                          "plain versions), printing their records")
+    ap.add_argument("--host-planes-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 9 "
+                         "(the host planes) alone, printing its record")
     args = ap.parse_args(argv)
     PARENT.update(walk=args.parent_walk, rotband=args.parent_rotband or ())
     if not torch.cuda.is_available():
@@ -1718,6 +1977,11 @@ def main(argv=None) -> int:
                 print(f"[chip_smoke] ptxas {src}: {line.strip()}")
     print(f"[chip_smoke] build: {secs:.1f}s for {len(cuda_ext.SOURCES)} "
           "sources", flush=True)
+    nstate = native_state()
+    if args.host_planes_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"host_planes": phase_host_planes("cuda", nstate)}))
+        return 0
 
     records = phase_kernels("cuda")
     if args.kernels_only:
@@ -1727,7 +1991,7 @@ def main(argv=None) -> int:
     # (lazily, on first launch): the cold run a user's first CLI call sees,
     # reported apart from the warm reruns
     groups = []
-    cold_s, _, cold_driver = phase_scale64("cuda", record=groups)
+    cold_s, _, cold_driver = phase_scale64("cuda", INLINE, record=groups)
     print(f"[chip_smoke] cold first run of the scale corpus: {cold_s:.3f}s "
           f"(recording its {len(groups)} local-fill groups)", flush=True)
     # the local fill's launch choices on the scale corpus's own group with
@@ -1736,25 +2000,35 @@ def main(argv=None) -> int:
     records["banded_local"]["warps_ms"][
         f"SCALE64 group, {len(big[0])} pairs, qmax {big[0].shape[1]}"] = \
         time_choices(torch.device("cuda"), big[:4], big[4])
-    arms = {"batched": [], "rotband": ["--banded-impl", "rotband"],
-            "bucketed": BUCKETS, "per_hole": ["--batch", "off"]}
+    # the batched arms under inline prep (a fixed schedule: equal launch
+    # counts between reruns); "pooled" is the default flags, the prep pool
+    # on, whose counts follow the threads' schedule
+    arms = {"batched": INLINE, "pooled": [],
+            "rotband": INLINE + ["--banded-impl", "rotband"],
+            "bucketed": INLINE + BUCKETS, "per_hole": ["--batch", "off"]}
     reps = {k: [] for k in arms}
     for _ in range(2):     # alternating, so a drift falls on every arm alike
         for k, extra in arms.items():
             reps[k].append(phase_scale64("cuda", extra))
     for k, rr in reps.items():
-        if rr[0][1] != rr[1][1]:
+        if k != "pooled" and rr[0][1] != rr[1][1]:
             raise AssertionError(f"SCALE64 {k}: launch counts differ between "
                                  f"reruns: {rr[0][1]} vs {rr[1][1]}")
+    for _, counts, _ in reps["pooled"]:
+        if any(counts[k] <= 0 for k in CRASH_KERNELS):
+            raise AssertionError(f"SCALE64 pooled: launches {counts} miss a "
+                                 "kernel of the default arm")
     runs = {k: rr[0] for k, rr in reps.items()}
     # the bucketed path under the other global-fill arm, once
-    buck_rot = phase_scale64("cuda", BUCKETS + arms["rotband"])
-    prof = phase_profile("cuda")
+    buck_rot = phase_scale64("cuda", arms["rotband"] + BUCKETS)
+    prof = phase_profile("cuda", INLINE)
     prof_rot = phase_profile("cuda", arms["rotband"])
     hifi_s, hifi_bases, idents = phase_hifi("cuda")
     long_arms, long_prof = phase_long("cuda")
     recorder = phase_recorder("cuda", [r[0] for r in reps["batched"]])
     crash = phase_crash("cuda", cold_driver)
+    planes = phase_host_planes("cuda", nstate, {
+        arm: long_arms[arm]["seconds"] for arm in ("default", "screen")})
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -1806,7 +2080,8 @@ def main(argv=None) -> int:
                       "long_molecule": {"arms": long_arms,
                                         "profiles": long_prof},
                       "flight_recorder": recorder,
-                      "crash_resume": crash}))
+                      "crash_resume": crash,
+                      "host_planes": planes}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -351,11 +351,14 @@ def test_cli_rotband_arm_same_bytes(corpus, tmp_path):
     ("_pair_fill_packed",
      cuda_ext.RefusedInputs("banded local fill: inputs must be contiguous "
                             "rows"))])
-def test_device_fault_in_a_slab_ends_the_run(step, exc, corpus, tmp_path,
-                                             monkeypatch, capsys):
+@pytest.mark.parametrize("prep", ["0", "2"])
+def test_device_fault_in_a_slab_ends_the_run(step, exc, prep, corpus,
+                                             tmp_path, monkeypatch, capsys):
     """A kernel or card fault inside a slab or a pair group, or a kernel
     wrapper refusing its tensors there, is fatal: rc 1, no per-request
-    replay, no quarantined hole."""
+    replay, no quarantined hole — inline, and with the prep pool, whose
+    pump thread runs the pair groups and hands the fault to the driver
+    thread."""
     fa, _ = corpus
 
     def faulty(*a, **k):
@@ -369,7 +372,8 @@ def test_device_fault_in_a_slab_ends_the_run(step, exc, corpus, tmp_path,
     monkeypatch.setattr(batch, step, faulty)
     monkeypatch.setattr(batch, "refine_host", no_replay)
     monkeypatch.setattr(batch, "HostAligner", no_replay)
-    rc, _ = _port_run(fa, tmp_path, "--batch", "on", "-v")
+    rc, _ = _port_run(fa, tmp_path, "--batch", "on", "--prep-threads", prep,
+                      "-v")
     err = capsys.readouterr().err
     assert rc == 1
     assert "device failure, run aborted" in err and str(exc) in err
@@ -413,8 +417,9 @@ def test_oom_in_a_slab_bisects_with_the_same_bytes(corpus, tmp_path,
 
     monkeypatch.setattr(batch, "_refine_step_packed", oom_once)
     monkeypatch.setattr(batch.BatchExecutor, "oom_backoff_s", 0.0)
-    assert _port_run(fa, tmp_path, "--batch", "on", "--inflight", "3") == \
-        (0, ref["fasta"])
+    # inline prep: the first refine step is the first slab of the schedule
+    assert _port_run(fa, tmp_path, "--batch", "on", "--inflight", "3",
+                     "--prep-threads", "0") == (0, ref["fasta"])
     err = capsys.readouterr().err
     assert "device OOM on a" in err and "resplitting (depth 1)" in err
     assert "replaying" not in err

@@ -324,7 +324,9 @@ def test_whole_read_consensus_passes_matches_reference():
     ["--slab-shape-ladder", "0"], ["--slab-shape-ladder", "9"],
     ["--slab-shape-ladder", "8"], ["--seed-device-min-t", "-1"],
     ["--seed-device-min-t", "0"], ["--prefilter", "maybe"],
-    ["--window-growth", "wide"], ["--refine-iters", "x"]])
+    ["--window-growth", "wide"], ["--refine-iters", "x"],
+    ["--prep-threads", "-1"], ["--prep-threads", "65"],
+    ["--prep-threads", "64"], ["--prep-threads", "x"]])
 def test_knob_validation_matches_reference(flags, tmp_path, monkeypatch):
     """The same return code as the JAX CLI (1 for a refused value, argparse's
     2 for a bad choice or type); a valid value gets past validation in both,

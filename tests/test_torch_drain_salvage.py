@@ -1,6 +1,7 @@
 """The port's graceful drain (ccsx_tpu_torch/utils/drain.py), its ingest
 guard with salvage (pipeline/run.guarded_stream, ``--salvage``,
-``--max-record-bytes``) and its disk-full path, against the JAX package's.
+``--max-record-bytes``), its disk-full path and its ``--bam`` writer, against
+the JAX package's.
 
 The JAX package's cases of the same names (tests/test_salvage.py: the
 record-size bound without salvage, salvage over a clean and a corrupt
@@ -9,11 +10,13 @@ resume in both drivers, the drain guard's signals, ENOSPC and resume, a
 failed journal settle), run on the port's CLI with ``--device cpu``.  One
 module-scoped JAX CLI process on the CPU gives the reference: its bytes
 and final counters under ``--salvage`` on the clean input, on injected
-corruption, on a FASTA with a bad hole name and on a BAM with a damaged
-BGZF block, which the port must give too.  Bytes and counters: exact
-equality.
+corruption, on a FASTA with a bad hole name, on a BAM with a damaged BGZF
+block and on a gzipped FASTQ cut short, which the port must give too; and
+its ``--bam`` output.  Bytes and counters: exact equality.
 """
 
+import gzip
+import hashlib
 import json
 import os
 import signal
@@ -26,7 +29,7 @@ import pytest
 
 from ccsx_tpu import cli as jcli
 
-from ccsx_tpu_torch import cli, exitcodes
+from ccsx_tpu_torch import cli, exitcodes, native
 from ccsx_tpu_torch.config import CcsConfig
 from ccsx_tpu_torch.io import bam as bam_mod
 from ccsx_tpu_torch.ops import encode as enc
@@ -79,21 +82,31 @@ CASES = {
     "injected": ("fa", ["--inject-faults", "input_corrupt@2"]),
     "bad_name": ("bad", []),
     "bam_block": ("bam", []),
+    # every byte zlib inflates before the cut reaches the parser
+    "gzip_cut": ("gz", []),
 }
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """3 holes of 500-bp templates as FASTA, the same FASTA with hole
-    101's name broken, and a BAM of the same holes in small BGZF blocks
-    with one block's deflate stream damaged; the JAX package's output
-    (fail-fast, and each CASES run under --salvage --metrics) from one JAX
-    CLI process."""
+    101's name broken, a BAM of the same holes in small BGZF blocks with one
+    block's deflate stream damaged, and the holes with a fourth as a FASTQ
+    gzipped whole and cut to its first 2,231 of 3,347 bytes; the JAX
+    package's output (fail-fast, each CASES run under --salvage --metrics,
+    and --bam) from one JAX CLI process."""
     d = tmp_path_factory.mktemp("salvage")
     rng = np.random.default_rng(0)
     zs = [synth.make_zmw(rng, template_len=500, n_passes=5, movie="mv",
-                         hole=str(100 + h)) for h in range(3)]
-    paths = {"fa": d / "in.fa", "bad": d / "bad.fa", "bam": d / "in.bam"}
+                         hole=str(100 + h)) for h in range(4)]
+    paths = {"fa": d / "in.fa", "bad": d / "bad.fa", "bam": d / "in.bam",
+             "gz": d / "cut.fq.gz"}
+    fq = "".join(f"@{n}\n{enc.decode(p)}\n+\n{'I' * len(p)}\n"
+                 for z in zs for n, p in zip(z.names, z.passes)).encode()
+    blob = gzip.compress(fq)
+    assert len(blob) == 3347
+    paths["gz"].write_bytes(blob[:2231])
+    zs = zs[:3]
     paths["fa"].write_text(synth.make_fasta(zs))
     data = paths["fa"].read_bytes()
     i = data.find(b">mv/101/")
@@ -118,7 +131,12 @@ def ref(tmp_path_factory):
     argvs = [["-A", "-m", "1000", "--batch", "on", str(paths["fa"]),
               str(d / "jax_ref.fa")],
              ["-m", "1000", "--batch", "on", str(paths["bam"]),
-              str(d / "jax_bam_failfast.fa")]]
+              str(d / "jax_bam_failfast.fa")],
+             ["-A", "-m", "1000", "--batch", "on", "--metrics",
+              str(d / "jax_gz_failfast.jsonl"), str(paths["gz"]),
+              str(d / "jax_gz_failfast.fa")],
+             ["-A", "-m", "1000", "--batch", "on", "--bam",
+              str(paths["fa"]), str(d / "jax.bam")]]
     for name, (key, flags) in CASES.items():
         argvs.append((["-A"] if key != "bam" else []) + [
             "-m", "1000", "--batch", "on", "--salvage", *flags,
@@ -131,9 +149,9 @@ def ref(tmp_path_factory):
                        timeout=600)
     assert r.returncode == 0, r.stderr
     rcs = json.loads(r.stdout.strip().splitlines()[-1])
-    assert rcs[0] == 0 and rcs[2:] == [0] * len(CASES)
+    assert rcs[0] == rcs[3] == 0 and rcs[4:] == [0] * len(CASES)
     return {"dir": d, "paths": paths, "bytes": (d / "jax_ref.fa").read_bytes(),
-            "bam_failfast_rc": rcs[1]}
+            "bam_failfast_rc": rcs[1], "gz_failfast_rc": rcs[2]}
 
 
 # ---- the record-size bound --------------------------------------------------
@@ -170,6 +188,9 @@ def test_salvage_equals_the_jax_package(name, ref, tmp_path):
     the damaged holes only, marked degraded — with the JAX package's
     bytes and counters in every case."""
     key, flags = CASES[name]
+    if key == "gz" and not native.available():
+        pytest.skip("the native reader (the JAX CLI's) is unavailable: "
+                    f"{native.build_error()}")
     out, m = tmp_path / "o.fa", tmp_path / "m.jsonl"
     argv = (["-A"] if key != "bam" else []) + PORT + [
         "--batch", "on", "--salvage", *flags, "--metrics", str(m),
@@ -191,6 +212,14 @@ def test_salvage_equals_the_jax_package(name, ref, tmp_path):
     else:
         assert port["holes_corrupt"] >= 1 and port["degraded"]
         assert 0 < port["holes_out"] < 3
+    if key == "gz":
+        # zlib inflates 12,610 bytes before the cut: holes 100 and 101 are
+        # whole, 102 is the partial tail both readers drop
+        b = out.read_bytes()
+        assert list(_by_hole(b)) == ["mv/100/ccs", "mv/101/ccs"]
+        assert hashlib.md5(b).hexdigest().startswith("2feaead356")
+        assert port["holes_in"] == 2
+        assert port["corrupt_reasons"] == {"gzip_truncated": 1}
 
 
 def test_corrupt_input_fails_fast_without_salvage(ref, tmp_path, capsys):
@@ -210,6 +239,23 @@ def test_corrupt_input_fails_fast_without_salvage(ref, tmp_path, capsys):
     assert ref["bam_failfast_rc"] == exitcodes.RC_FATAL
 
 
+def test_truncated_gzip_fails_fast_after_the_jax_clis_holes(ref, tmp_path,
+                                                           capsys):
+    """Without --salvage the cut gzip FASTQ ends the run at rc 1 with no
+    output, after admitting as many holes as the JAX CLI (2: the native
+    reader hands out every byte zlib inflates before the cut)."""
+    if not native.available():
+        pytest.skip(f"native library unavailable: {native.build_error()}")
+    out, m = tmp_path / "o.fa", tmp_path / "m.jsonl"
+    rc = cli.main(["-A"] + PORT + ["--batch", "on", "--metrics", str(m),
+                                   str(ref["paths"]["gz"]), str(out)])
+    assert rc == ref["gz_failfast_rc"] == exitcodes.RC_FATAL
+    assert "invalid input stream" in capsys.readouterr().err
+    assert out.read_bytes() == b""
+    jax = _final(ref["dir"] / "jax_gz_failfast.jsonl")
+    assert _final(m)["holes_in"] == jax["holes_in"] == 2
+
+
 def test_corrupt_holes_spend_failure_budget(ref, tmp_path):
     rc = cli.main(["-A"] + PORT + [
         "--batch", "on", "--salvage", "--max-failed-holes", "0",
@@ -222,8 +268,9 @@ def test_corrupt_holes_spend_failure_budget(ref, tmp_path):
 
 
 @pytest.mark.parametrize("batch_arg,spec,extra", [
-    # a pinned window of one hole: admission genuinely stops early
-    ("on", "sigterm@1", ["--inflight", "1"]),
+    # a pinned window of one hole and inline prep: admission genuinely
+    # stops early (the prep pool would have ingested every hole ahead)
+    ("on", "sigterm@1", ["--inflight", "1", "--prep-threads", "0"]),
     ("off", "sigterm@2", []),
 ])
 def test_sigterm_drain_then_resume_byte_identical(batch_arg, spec, extra,
@@ -310,3 +357,39 @@ def test_enospc_clean_rc1_then_resume(batch_arg, ref, tmp_path, monkeypatch,
     assert j["out_bytes"] == out.stat().st_size
     assert cli.main(args) == 0
     assert out.read_bytes() == ref["bytes"]
+
+
+# ---- --bam ------------------------------------------------------------------
+
+
+def test_bam_output_equals_the_jax_cli(ref, tmp_path):
+    """--bam: the JAX CLI's bytes; read back, the records are the FASTA
+    run's names and sequences, each with an rq in (0.8, 1]."""
+    out = tmp_path / "o.bam"
+    assert cli.main(["-A"] + PORT + ["--batch", "on", "--bam",
+                                     str(ref["paths"]["fa"]), str(out)]) == 0
+    assert out.read_bytes() == (ref["dir"] / "jax.bam").read_bytes()
+    recs = list(bam_mod.read_bam_records(str(out), with_aux=True))
+    want = {k: "".join(v.split("\n")[1:]).encode()
+            for k, v in _by_hole(ref["bytes"]).items()}
+    assert {r.name: r.seq for r, _ in recs} == want
+    assert all(0.8 < aux["rq"][1] <= 1.0 for _, aux in recs)
+
+
+@pytest.mark.parametrize("case", ["fastq", "journal", "stdout"])
+def test_bam_refusals_match_the_jax_cli(case, ref, tmp_path, capsys):
+    """--bam with --fastq, with --journal, and to stdout: rc 1 and the
+    JAX CLI's message."""
+    extra = {"fastq": ["--fastq"], "journal": ["--journal",
+                                              str(tmp_path / "j.json")],
+             "stdout": []}[case]
+    out = "-" if case == "stdout" else str(tmp_path / "o.bam")
+    args = ["-A", "-m", "1000", "--batch", "on", "--device", "cpu", "--bam",
+            *extra, str(ref["paths"]["fa"]), out]
+    rcs, lines = [], []
+    for main in (cli.main, jcli.main):
+        rcs.append(main(args))
+        lines.append([ln for ln in capsys.readouterr().err.splitlines()
+                      if "--bam" in ln])
+    assert rcs == [1, 1]
+    assert lines[0] == lines[1] and len(lines[0]) == 1

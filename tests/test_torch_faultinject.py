@@ -34,7 +34,8 @@ from ccsx_tpu_torch.utils import faultinject, synth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["-A", "-m", "1000"]
-PORT = BASE + ["--device", "cpu"]
+# the port's inline prep: fault positions follow the driver's schedule
+PORT = BASE + ["--device", "cpu", "--prep-threads", "0"]
 # the JAX package's inline-prep batched path, which is the port's
 JAX_INLINE = ["--prep-threads", "0", "--no-warmup"]
 

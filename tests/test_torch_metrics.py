@@ -46,7 +46,9 @@ from ccsx_tpu_torch.utils.run_metrics import PORT_KEYS, RunMetrics
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_BATCHED = ["--batch", "on", "--device", "cpu", "--prep-threads", "0",
                "--no-warmup"]
-PORT_BATCHED = ["--batch", "on", "--device", "cpu"]
+# the port's inline-prep batched path: spans, counters and the patched
+# hole generator run on the driver thread, as on the JAX side
+PORT_BATCHED = ["--batch", "on", "--device", "cpu", "--prep-threads", "0"]
 
 
 def _read_jsonl(path):
