@@ -12,7 +12,11 @@ the JAX package's spellings, defaults and error messages, and so do the
 recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
 ``--profile``), ``--max-failed-holes``, the crash-safety flags
 (``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``),
-``--prep-threads`` (the batched driver's prep pool) and ``--bam``.
+``--prep-threads`` (the batched driver's prep pool), ``--no-warmup``
+and ``--bam``.  On the card the warmup plane is off unless ``--warmup``
+is given (the JAX CLI's is on unless ``--no-warmup``, and so is the
+port's on the CPU): no run measured so far had it paying for itself on
+the card (PERF.md).
 
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
     python -m ccsx_tpu_torch.cli stats <trace/metrics JSONL>...
@@ -80,6 +84,13 @@ Port options (long):
 --slab-shape-ladder <int>
                       canonical tail-slab heights per packed shape group,
                       1-8 [2]
+--warmup              capture each packed group's predicted refine
+                      programs (CUDA graphs) on a background thread
+                      ahead of their first dispatch (pipeline/warmup.py);
+                      without it a shape's first slab runs eagerly and
+                      its second captures [off on cuda, on on cpu]
+--no-warmup           turn the warmup plane off (the JAX CLI's spelling;
+                      the default on cuda)
 --prefilter {on,off}  reject hopeless strand-walk pairs before the local
                       fill (device screen + seed statistics); off also
                       stops the walk's fwd+RC speculation.  Same output
@@ -167,6 +178,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slab-rows", type=int, default=None, metavar="R")
     p.add_argument("--slab-shape-ladder", type=int, default=None,
                    metavar="N", dest="slab_shape_ladder")
+    p.add_argument("--warmup", action="store_true",
+                   help="capture each packed group's predicted refine "
+                        "programs on a background thread ahead of their "
+                        "first dispatch (pipeline/warmup.py) [off on cuda, "
+                        "on on cpu]")
+    p.add_argument("--no-warmup", action="store_true", dest="no_warmup",
+                   help="turn the warmup plane off (the default on cuda)")
     p.add_argument("--prefilter", default="on", choices=["on", "off"])
     p.add_argument("--window-growth", default="flush",
                    choices=["flush", "grow"])
@@ -270,6 +288,8 @@ def config_from_args(args) -> CcsConfig:
         emit_quality=args.fastq or args.bam_out,
         bam_out=args.bam_out,
         prep_threads=prep_threads,
+        warmup_compile=not args.no_warmup and (args.warmup
+                                               or args.device != "cuda"),
         device=args.device,
         banded_impl=args.banded_impl,
         refine_iters=args.refine_iters,

@@ -144,11 +144,13 @@ class CcsConfig:
     #   programs ever (the r7 flight recorder caught the finer budget/8
     #   ladder paying 4-5 compiles per group); 1 = every slab dispatches
     #   at the full budget
-    warmup_compile: bool = True        # AOT warmup precompiler (pipeline/
-    #   warmup.py): a background thread compiles each packed group's
-    #   canonical executables as soon as prep predicts them, overlapping
-    #   cold compiles with ingest instead of stalling the first dispatch
-    #   of every shape.  CLI --no-warmup disables
+    warmup_compile: bool = True        # the warmup plane (pipeline/
+    #   warmup.py): a background thread captures each packed group's
+    #   canonical refine programs (CUDA graphs, pipeline/graphs.py) as
+    #   soon as prep predicts them, ahead of their first dispatch.  The
+    #   JAX package's default; the port's CLI sets it only with --warmup:
+    #   a capture holds the interpreter lock, so it overlaps little, and
+    #   no run measured so far had the plane paying for itself (PERF.md)
     zmw_microbatch: int = 64           # ZMWs per device dispatch; also the
     #   ADAPTIVE admission-window cap of the batched driver: without an
     #   explicit --inflight the window starts at cap/chunk_growth^2 and

@@ -10,7 +10,10 @@ on anything but success.
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show which kernels
-its path went through.
+its path went through.  A CUDA graph replay (pipeline/graphs.py) launches
+without calling a wrapper: it adds the launches its capture recorded
+(``add``), and what a thread counts inside ``tally()`` (a capture, which
+launches nothing, or a program's priming run) goes to that tally instead.
 
 A kernel that fails to build or launch raises ``KernelError``, and a wrapper
 that refuses its tensors on the card raises its subclass ``RefusedInputs``:
@@ -20,6 +23,7 @@ per-request replay may swallow either.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +43,7 @@ LAUNCHES = {"banded_global": 0, "banded_local": 0, "banded_rotband": 0,
             "traceback_walk": 0}
 
 _lock = threading.Lock()
+_tls = threading.local()
 
 
 class KernelError(RuntimeError):
@@ -55,8 +60,31 @@ _libs: dict = {}
 
 
 def count(name: str) -> None:
+    tally_ = getattr(_tls, "tally", None)
+    if tally_ is not None:
+        tally_[name] += 1
+        return
     with _lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this thread's launches into a fresh dict, not LAUNCHES, for
+    the duration."""
+    prev = getattr(_tls, "tally", None)
+    _tls.tally = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _tls.tally
+    finally:
+        _tls.tally = prev
+
+
+def add(counts: dict) -> None:
+    """Add launches made without a wrapper call (a graph replay's)."""
+    with _lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def reset_counts() -> None:

@@ -133,8 +133,10 @@ def make_materializer(tmax_in: int, tmax_out: int, max_ins: int):
         H = cons.shape[0]
         dev = cons.device
         m = torch.cat([cons[:, :, None], ins_out], dim=2).reshape(H, -1)
-        col = torch.arange(tmax_in, dtype=torch.int32,
-                           device=dev).repeat_interleave(1 + max_ins)
+        # each column index 1 + max_ins times (an expand: no host read, so
+        # a CUDA graph can hold it)
+        col = torch.arange(tmax_in, dtype=torch.int32, device=dev)[
+            :, None].expand(tmax_in, 1 + max_ins).reshape(-1)
         keep = (m < 4) & (col[None, :] < tlen.to(torch.int32)[:, None])
         pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
         newlen = keep.sum(1, dtype=torch.int32)

@@ -152,11 +152,15 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
     lead = torch.empty((P,), dtype=torch.int32, device=dev)
     if P:
         lib = _lib()
-        # one thread launches the walk: the launcher's lazy shared-memory
-        # attribute (`static bool attr`, csrc/traceback_walk.cu) is set
-        # without a lock.  In the batched driver that is the driver thread
-        # (the refine steps); the prep pool's pump launches only the local
-        # fill and the seed and screen steps
+        # the launcher's lazy shared-memory attribute (`static bool attr`,
+        # csrc/traceback_walk.cu) is set without a lock.  In the batched
+        # driver the walk launches from the refine programs' builds
+        # (pipeline/graphs.py: one build at a time, on the driver or the
+        # warmup thread; the priming run sets the attribute before any
+        # capture) and from the driver thread's per-request replays, whose
+        # first launch can meet a build's only with the attribute's same
+        # value; the prep pool's pump launches only the local fill and the
+        # seed and screen steps
         rc = lib.ccsx_traceback_walk(
             moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
             qlens.data_ptr(), tlens.data_ptr(), tmax, max_ins,

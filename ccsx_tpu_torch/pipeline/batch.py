@@ -30,13 +30,20 @@ holes and serves their pending requests together:
 This is the JAX package's pipeline/batch.py, single-device path (its
 ``pool is None`` inline-prep branch), with the same slab plan and groups,
 the same per-hole freeze/fixpoint/overflow rules and so the same output
-bytes.  JAX runs the refine loop as a device ``while_loop``; here it is a
-host loop of at most iters + 1 rounds that reads one bool per round.  The
-JAX package pads a bucketed group's Z to a power of two (_z_bucket) to
-bound its compiles; the port compiles nothing per shape and does not.
+bytes.  JAX runs the refine loop as a device ``while_loop``, one compiled
+program per canonical slab shape.  Here, on the card, each refine step at
+one shape is one CUDA graph of exactly iters + 1 rounds with no host read
+(pipeline/graphs.py): a shape's first slab runs the rounds eagerly, its
+second captures the graph (or the warmup plane, pipeline/warmup.py,
+captures it ahead of the first), and every later slab replays it; on the
+CPU the step runs eagerly, a loop of at most iters + 1 rounds that reads
+one bool per round.  The JAX package pads a bucketed group's Z to a
+power of two (_z_bucket) to bound its compiles; the port does not, so a
+bucketed group captures one graph per distinct Z.
 
-Failures (classify_failure): a CUDA out-of-memory error bisects the slab by
-hole and retries the halves (capped depth, backoff); a kernel or card fault,
+Failures (classify_failure): a CUDA out-of-memory error drops the refine
+programs and bisects the slab by hole and retries the halves (capped depth,
+backoff); a kernel or card fault,
 or a kernel wrapper refusing its tensors, ends the run
 (``cuda_ext.KernelError``, rc 1 from the caller), never replayed or
 quarantined; any other error replays each request of the group through the
@@ -57,6 +64,7 @@ under the matching stage timers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 import time
 from collections import OrderedDict, defaultdict
@@ -77,6 +85,7 @@ from ccsx_tpu_torch.ops import breakpoint as bp_mod
 from ccsx_tpu_torch.ops import cuda_ext
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
+from ccsx_tpu_torch.pipeline import graphs
 from ccsx_tpu_torch.pipeline import pack as pack_mod
 from ccsx_tpu_torch.utils import faultinject, trace
 from ccsx_tpu_torch.utils.journal import Journal
@@ -165,9 +174,10 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
     """The recovery ladder for one failed group.
 
     fatal -> re-raised as cuda_ext.KernelError: the run ends
-    oom   -> bisect idxs (each half re-packs into a smaller covering slab)
-             with exponential backoff, at most max_resplits deep; the
-             bottom replays per request like 'data'
+    oom   -> drop the refine programs (graphs.clear), then bisect idxs
+             (each half re-packs into a smaller covering slab) with
+             exponential backoff, at most max_resplits deep; the bottom
+             replays per request like 'data'
     data  -> replay each request on the per-hole path
     """
     kind = classify_failure(exc)
@@ -175,6 +185,10 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
                   n=len(idxs), depth=depth)
     if kind == "fatal":
         raise _fatal(exc) from exc
+    if kind == "oom":
+        # the refine programs' graphs and pool, and the allocator's cache,
+        # before anything is retried
+        graphs.clear()
     if kind == "oom" and depth < max_resplits and len(idxs) > 1:
         metrics.bump(oom_resplits=1)
         print(f"[ccsx-tpu-torch] device OOM on a {len(idxs)}-request group "
@@ -231,7 +245,7 @@ def _fused_tmax(tlen: int, quant: int) -> int:
 # ---- the packed refine step -----------------------------------------------
 
 def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
-                 rows: tuple, max_ins: int):
+                 rows: tuple, max_ins: int, device_only: bool = False):
     """The refinement loop both refine cores run, over H holes (slots).
 
     ``one_round(draft, dlen)`` gives the 9 round outputs: five hole-shaped
@@ -244,7 +258,12 @@ def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
     replay; the round at it == iters is the mandatory final round; holes
     ``fixed`` at the start (no real rows) never change.  At most iters + 1
     rounds, one bool read per round (whether every hole is frozen).
-    Returns (outs, dlen, ovf)."""
+
+    ``device_only``: exactly iters + 1 rounds and no host read, the form a
+    CUDA graph captures (pipeline/graphs.py).  Its bytes are the early-exit
+    loop's: once a hole is frozen the ``torch.where`` below keeps its
+    outputs and ``grow`` keeps its draft, so the rounds after every hole
+    froze change nothing.  Returns (outs, dlen, ovf)."""
     dev = draft.device
     H, tmax = draft.shape
 
@@ -284,7 +303,7 @@ def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
         fixed = fixed | now_fixed | o
         ovf = ovf | o
         it += 1
-        if bool(fixed.all()):
+        if not device_only and bool(fixed.all()):
             break
     return outs, dlen, ovf
 
@@ -315,7 +334,7 @@ def _round_body_packed(params: AlignParams, max_ins: int, tmax: int,
 
 def _refine_core_packed(params: AlignParams, max_ins: int, tmax: int,
                         iters: int, nseg: int, bp_consts: tuple,
-                        impl: str = ""):
+                        impl: str = "", device_only: bool = False):
     """The whole-window refinement loop (_refine_loop) over ONE packed slab.
 
     core(qs (R, qmax) uint8, qlens (R,) int32, row_mask (R,) bool, seg (R,)
@@ -323,7 +342,7 @@ def _refine_core_packed(params: AlignParams, max_ins: int, tmax: int,
     ins_votes, ncov, nwin, bp, advance, dlen, ovf), H = nseg, as the JAX
     package's ``_refine_core_packed`` returns them.  A frozen hole keeps
     its row-shaped outputs through the segment vector; empty hole slots
-    (no real rows) start frozen."""
+    (no real rows) start frozen.  ``device_only`` as _refine_loop's."""
     one_round = _round_body_packed(params, max_ins, tmax, nseg, impl)
     bp_advance = bp_mod.make_bp_advance_packed(tmax, nseg, *bp_consts)
     mat = msa.make_materializer(tmax, tmax, max_ins)
@@ -336,7 +355,7 @@ def _refine_core_packed(params: AlignParams, max_ins: int, tmax: int,
         outs, dlen, ovf = _refine_loop(
             lambda d, dl: one_round(qs, qlens, row_mask, seg, d, dl), mat,
             iters, ts, tlens, nrows == 0, lambda f: f.index_select(0, seg),
-            (qs.shape[0],), max_ins)
+            (qs.shape[0],), max_ins, device_only)
         (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
          lead_ins) = outs
         bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
@@ -369,6 +388,12 @@ def _pack_slab_args(args, pin: bool = False):
     return big_t, small_t
 
 
+def _slab_wire_specs(R: int, qmax: int, H: int, tmax: int) -> list:
+    """(shape, dtype) of _pack_slab_args's two buffers."""
+    return [((R * qmax + H * tmax,), torch.uint8),
+            ((3 * R + H,), torch.int32)]
+
+
 def _unpack_slab_args(big, small, R: int, qmax: int, H: int, tmax: int):
     """Device side of _pack_slab_args: views into the two buffers."""
     qs = big[:R * qmax].view(R, qmax)
@@ -382,14 +407,16 @@ def _unpack_slab_args(big, small, R: int, qmax: int, H: int, tmax: int):
 
 def _refine_step_packed(params: AlignParams, max_ins: int, tmax: int,
                         iters: int, nseg: int, bp_consts: tuple,
-                        pack: tuple, impl: str = ""):
+                        pack: tuple, impl: str = "",
+                        device_only: bool = False):
     """The slab step at pack=(R, qmax): the two wire buffers (already on the
     device) in, ONE uint8 buffer out — the hole-shaped outputs, then the
     int32 (bp, dlen, ovf, advance) as bytes — so the result comes back in
-    one copy (_unpack_slab_refine splits it)."""
+    one copy (_unpack_slab_refine splits it).  ``device_only`` as
+    _refine_loop's (the form a CUDA graph captures)."""
     R, qmax = pack
     core = _refine_core_packed(params, max_ins, tmax, iters, nseg,
-                               bp_consts, impl)
+                               bp_consts, impl, device_only)
 
     def step(big, small):
         args = _unpack_slab_args(big, small, R, qmax, nseg, tmax)
@@ -440,7 +467,8 @@ def _round_body(params: AlignParams, max_ins: int, tmax: int,
 
     def body(qs, qlens, row_mask, draft, dlen):
         Z, P, qmax = qs.shape
-        hole = torch.arange(Z, device=qs.device).repeat_interleave(P)
+        hole = torch.arange(Z, device=qs.device)[:, None].expand(
+            Z, P).reshape(-1)                       # each hole P times
         ts_r = draft.index_select(0, hole)          # (Z·P, tmax)
         tl_r = dlen.to(torch.int32).index_select(0, hole)
         q_r = qs.reshape(Z * P, qmax).contiguous()
@@ -481,14 +509,15 @@ def _round_core(params: AlignParams, max_ins: int, tmax: int,
 
 
 def _refine_core(params: AlignParams, max_ins: int, tmax: int, iters: int,
-                 bp_consts: tuple, impl: str = ""):
+                 bp_consts: tuple, impl: str = "", device_only: bool = False):
     """A window's whole refinement loop (_refine_loop) over a bucketed
     group, with the packed core's rules per hole; holes without a real pass
     start frozen.
 
     core(qs, qlens, ts, tlens, row_mask) (the shapes of _round_core) ->
     (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen, ovf), as
-    the JAX package's ``_refine_step`` core returns them."""
+    the JAX package's ``_refine_step`` core returns them.  ``device_only``
+    as _refine_loop's."""
     one_round = _round_body(params, max_ins, tmax, impl)
     bp_advance = bp_mod.make_bp_advance(tmax, *bp_consts)
     mat = msa.make_materializer(tmax, tmax, max_ins)
@@ -497,7 +526,7 @@ def _refine_core(params: AlignParams, max_ins: int, tmax: int, iters: int,
         outs, dlen, ovf = _refine_loop(
             lambda d, dl: one_round(qs, qlens, row_mask, d, dl), mat, iters,
             ts, tlens, ~row_mask.any(dim=1), lambda f: f, qs.shape[:2],
-            max_ins)
+            max_ins, device_only)
         (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
          lead_ins) = outs
         bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
@@ -567,10 +596,12 @@ def _round_step(params: AlignParams, max_ins: int, tmax: int,
 
 
 def _refine_step(params: AlignParams, max_ins: int, tmax: int, iters: int,
-                 bp_consts: tuple, pack: tuple, impl: str = ""):
+                 bp_consts: tuple, pack: tuple, impl: str = "",
+                 device_only: bool = False):
     """The bucketed refinement step (_refine_core) at pack=(P, qmax), as
     _round_step; its output also carries dlen and ovf (_unpack_refine)."""
-    core = _refine_core(params, max_ins, tmax, iters, bp_consts, impl)
+    core = _refine_core(params, max_ins, tmax, iters, bp_consts, impl,
+                        device_only)
     P, qmax = pack
 
     def step(buf):
@@ -984,14 +1015,24 @@ class BatchExecutor:
     round (_round_step), grouped by (P, qmax, tmax).
 
     Either way the per-request replay is refine_host (or the round) over
-    the per-hole round, on the same device."""
+    the per-hole round, on the same device.
+
+    Each refine step goes through the program cache (graphs.dispatch: on
+    the card a shape's first slab runs eagerly, its second captures the
+    shape's CUDA graph, the rest replay it), or its program is built ahead
+    of its first dispatch by the warmup plane (``warmup``, a
+    WarmupCompiler): ``warm_refine`` predicts each packed group's
+    canonical slab heights at admission, ``_warm_sweep_shapes`` submits a
+    sweep's exact shapes before its dispatches, and each dispatch waits
+    for its shape's build first (``_warm_wait``).  Bare rounds run
+    eagerly."""
 
     # OOM resplit ladder: three halvings before the per-request replay
     max_oom_resplits = 3
     oom_backoff_s = 0.05
 
     def __init__(self, cfg: CcsConfig, device="cuda",
-                 metrics: Optional[RunMetrics] = None):
+                 metrics: Optional[RunMetrics] = None, warmup=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = metrics if metrics is not None else RunMetrics()
@@ -1010,6 +1051,17 @@ class BatchExecutor:
         # one device: the JAX package's rule (pass_packing, and --mesh is
         # ignored on a single device) reduces to the flag
         self.packing = bool(cfg.pass_packing)
+        # the warmup plane (pipeline/warmup.py); None without --warmup
+        self._warmup = warmup
+        self._shape_seen: set = set()  # distinct packed (R, q, t, i) shapes
+        # warm_refine's prediction per (qmax, tmax, iters) group: (rows
+        # accumulated, predicted R, its warm key), each hole counted once
+        # per group (_group_holes)
+        self._group_pred: Dict[tuple, tuple] = {}
+        self._group_holes: Dict[tuple, set] = {}
+        # what the steps' closures take from cfg, in every program key
+        # (with the step's factory, which a caller may replace)
+        self._cfg_key = graphs.config_key(cfg, self.device)
 
     def _count_cells(self, reqs, idxs, P, qmax, Z, iters: int = 1):
         """Padding accounting of a bucketed group (metrics.dp_cells_*):
@@ -1050,6 +1102,145 @@ class BatchExecutor:
         cfg = self.cfg
         return (cfg.bp_window, cfg.bp_minwin, cfg.bp_rowrate,
                 cfg.bp_colrate, cfg.bp_colrate_lowpass)
+
+    # ---- the refine programs (pipeline/graphs.py) and their warmup
+    # ---- (pipeline/warmup.py): predict and capture the canonical packed
+    # ---- programs concurrently with ingest/prep
+
+    def _warm_key(self, qmax, tmax, iters, R, H):
+        return ("refine_packed", qmax, tmax, iters, R, H, self.bimpl)
+
+    def _packed_spec(self, qmax, tmax, iters, R, H) -> tuple:
+        """(key, step factory, input specs) of the packed refine step at
+        one slab shape (the device-only loop on the card), for
+        graphs.program and graphs.dispatch."""
+        cfg = self.cfg
+        cuda = self.device.type == "cuda"
+        return (self._warm_key(qmax, tmax, iters, R, H) + self._cfg_key
+                + (_refine_step_packed,),
+                lambda: _refine_step_packed(
+                    cfg.align, cfg.max_ins_per_col, tmax, iters, H,
+                    self._bp_consts(), (R, qmax), cfg.banded_impl,
+                    device_only=cuda),
+                _slab_wire_specs(R, qmax, H, tmax))
+
+    def _packed_program(self, qmax, tmax, iters, R, H) -> graphs.Program:
+        """The packed refine step's program at one slab shape, built (and
+        primed) on first request: the warmup plane's."""
+        return graphs.program(*self._packed_spec(qmax, tmax, iters, R, H),
+                              self.device)
+
+    def _bucketed_spec(self, P, qmax, tmax, iters, Z) -> tuple:
+        """As _packed_spec, for the bucketed refine step at one (P, qmax,
+        tmax, iters, Z) group (the JAX package's warm_refine does not
+        predict bucketed groups either)."""
+        cfg = self.cfg
+        cuda = self.device.type == "cuda"
+        width = P * qmax + tmax + 4 * (2 * P + 1)    # _pack_args's row
+        return (("refine", P, qmax, tmax, iters, Z, self.bimpl)
+                + self._cfg_key + (_refine_step,),
+                lambda: _refine_step(cfg.align, cfg.max_ins_per_col, tmax,
+                                     iters, self._bp_consts(), (P, qmax),
+                                     cfg.banded_impl, device_only=cuda),
+                [((Z, width), torch.uint8)])
+
+    def _bucketed_program(self, P, qmax, tmax, iters, Z) -> graphs.Program:
+        return graphs.program(*self._bucketed_spec(P, qmax, tmax, iters, Z),
+                              self.device)
+
+    def _warm_wait(self, key) -> None:
+        """Dispatch-side sync: wait for this shape's warmup, queued or
+        running (WarmupCompiler.promote: a queued one jumps the queue).
+        The JAX package's dispatch claims a queued warmup back and
+        compiles inline; here the dispatch would run the shape eagerly
+        and capture at its next slab, and a plane that runs at all owns
+        every capture it predicted.  The builder's finally guarantees
+        the wait ends."""
+        if self._warmup is not None:
+            self._warmup.promote(key)
+
+    def _note_shape(self, R, qmax, tmax, iters) -> None:
+        key = (R, qmax, tmax, iters)
+        if key not in self._shape_seen:
+            self._shape_seen.add(key)
+            self.metrics.distinct_slab_shapes = len(self._shape_seen)
+
+    def _submit_warm(self, qmax, tmax, iters, R, urgent=False) -> tuple:
+        H = max(1, R // pack_mod.SEG_DIV)
+        key = self._warm_key(qmax, tmax, iters, R, H)
+        self._warmup.submit(key, functools.partial(
+            self._warm_build, qmax, tmax, iters, R, H), urgent=urgent)
+        return key
+
+    def warm_refine(self, req: RefineRequest, hole_id=None) -> None:
+        """Queue the capture of the program this request's (qmax, tmax,
+        iters) group is predicted to need, the moment prep yields the
+        request, so captures overlap ingest/prep instead of stalling the
+        group's first dispatch.
+
+        The predicted R is the smallest canonical height covering the
+        group's ACCUMULATED predicted rows (capped at the budget, the
+        steady-state shape); when accumulation pushes the prediction up a
+        height, the stale queued warm is cancelled (WarmupCompiler.claim).
+        Each hole counts once per group (the driver re-warms every active
+        hole after every sweep).  A group that fills its row budget will
+        dribble through the lower canonical heights at its end, so those
+        are queued too.  A no-op without a warmup compiler and under
+        --pass-buckets (its Z is the sweep's, unknowable at admission)."""
+        if self._warmup is None or not self.packing:
+            return
+        qmax = req.qs.shape[1]
+        tmax = _fused_tmax(len(req.draft), self.len_quant)
+        gk = (qmax, tmax, req.iters)
+        rows = max(int(req.row_mask.sum()), pack_mod.SEG_DIV)
+        acc, old_r, old_key = self._group_pred.get(gk, (0, None, None))
+        if hole_id is not None:
+            seen = self._group_holes.setdefault(gk, set())
+            if hole_id in seen:
+                return
+            seen.add(hole_id)
+        acc = min(acc + rows, self.slab_rows)
+        heights = pack_mod.canonical_heights(self.slab_rows,
+                                             self.slab_ladder)
+        R = self.slab_rows
+        for h in heights:
+            if h >= acc:
+                R = h
+            else:
+                break
+        key = old_key
+        if R != old_r:
+            if old_key is not None:
+                self._warmup.claim(old_key)  # cancel the stale warm
+            key = self._submit_warm(qmax, tmax, req.iters, R)
+        if acc >= self.slab_rows:
+            for h in heights:
+                if h != R:
+                    self._submit_warm(qmax, tmax, req.iters, h)
+        self._group_pred[gk] = (acc, R, key)
+
+    def _warm_sweep_shapes(self, shapes) -> None:
+        """Sweep-time exact warming: a sweep's slab shapes are known before
+        its dispatches, so any not yet built is submitted ``urgent`` (no
+        debounce) and captured while earlier slabs dispatch; a shape whose
+        capture has not started when its own dispatch arrives jumps the
+        queue and is waited for (_warm_wait)."""
+        if self._warmup is None:
+            return
+        for qmax, tmax, iters, R in sorted(shapes):
+            self._submit_warm(qmax, tmax, iters, R, urgent=True)
+
+    def _warm_build(self, qmax, tmax, iters, R, H) -> None:
+        """Warmup-thread builder: build the program (on its all-zero slab:
+        every segment starts frozen) and replay it once, waited for.  The
+        warmup=True span carries the dispatch span's group and shape, so
+        it books the shape's one compile and the first real dispatch books
+        as execute."""
+        with trace.device_span(
+                "warmup", group=f"packed:q{qmax}:t{tmax}:i{iters}"
+                                f":b{self.bimpl}",
+                shape=f"R{R}:S{H}", warmup=True):
+            self._packed_program(qmax, tmax, iters, R, H).warm()
 
     def _stack_slab(self, reqs, idxs, qmax, tmax):
         """Pack the real pass-rows of the given requests into ONE slab:
@@ -1216,9 +1407,6 @@ class BatchExecutor:
             buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
                                                tmax), pin=pin)
             faultinject.fire("device_oom")
-            step = _refine_step(cfg.align, M, tmax, iters,
-                                self._bp_consts(), (P, qmax),
-                                cfg.banded_impl)
             self.metrics.bump(bucketed_dispatches=1)
             self.metrics.bump_banded(self.bimpl)
             with trace.device_span(
@@ -1227,7 +1415,9 @@ class BatchExecutor:
                     shape=f"Z{Z}", n=Z, Z=Z) as sp:
                 faultinject.fire("stall")
                 faultinject.fire("device_hang")
-                return sp.force(step(buf.to(self.device, non_blocking=pin)))
+                return sp.force(graphs.dispatch(
+                    *self._bucketed_spec(P, qmax, tmax, iters, Z),
+                    self.device, buf))
 
         def finish(idxs, key, out):
             (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
@@ -1272,6 +1462,7 @@ class BatchExecutor:
             shape_groups[(req.qs.shape[1], tmax, req.iters)].append(i)
 
         groups: Dict[tuple, List[int]] = {}
+        sweep_shapes = set()
         for key, idxs in shape_groups.items():
             for s_no, slab in enumerate(pack_mod.plan_slabs(
                     [nrows[i] for i in idxs], self.slab_rows)):
@@ -1280,8 +1471,10 @@ class BatchExecutor:
                 R, _ = pack_mod.slab_shape([nrows[i] for i in sl_idxs],
                                            self.slab_rows,
                                            ladder=self.slab_ladder)
+                sweep_shapes.add(key + (R,))
                 self._count_cells_packed(requests, sl_idxs, key[0], R,
                                          key[2])
+        self._warm_sweep_shapes(sweep_shapes)
         self.metrics.bump(slabs=len(groups), device_dispatches=len(groups))
         pin = self.device.type == "cuda"
 
@@ -1295,9 +1488,8 @@ class BatchExecutor:
             args = self._stack_slab(requests, idxs, qmax, tmax)
             R, H = args[0].shape[0], args[4].shape[0]
             big, small = _pack_slab_args(args, pin=pin)
-            step = _refine_step_packed(cfg.align, M, tmax, iters, H,
-                                       self._bp_consts(), (R, qmax),
-                                       cfg.banded_impl)
+            self._warm_wait(self._warm_key(qmax, tmax, iters, R, H))
+            self._note_shape(R, qmax, tmax, iters)
             self.metrics.bump_banded(self.bimpl)
             with trace.device_span(
                     "refine_packed", group=label(key),
@@ -1307,9 +1499,9 @@ class BatchExecutor:
                           "holes": len(idxs)}) as sp:
                 faultinject.fire("stall")
                 faultinject.fire("device_hang")
-                return sp.force(step(
-                    big.to(self.device, non_blocking=pin),
-                    small.to(self.device, non_blocking=pin)))
+                return sp.force(graphs.dispatch(
+                    *self._packed_spec(qmax, tmax, iters, R, H),
+                    self.device, big, small))
 
         def finish(idxs, key, out):
             _, tmax, _, _ = key
@@ -1430,6 +1622,13 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     nothing dispatchable.  Output bytes, ordered emission and the journal
     invariant are the same either way (tests/test_torch_prep_pool.py).
 
+    With cfg.warmup_compile (the port's CLI sets it on the card only with
+    --warmup: no run measured so far had the plane paying for itself), a
+    WarmupCompiler (pipeline/warmup.py) captures each packed group's
+    predicted refine programs on a background thread: every hole is warmed
+    at admission and again after each sweep (its next window may fall in
+    another group), as the JAX driver does.
+
     Counters, stage timers and progress events go into ``metrics``; the
     spans into the installed tracer (the caller's, utils/trace.py).  The
     first ``journal.holes_done`` holes were written by an earlier run: they
@@ -1449,11 +1648,23 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     growth = max(2, int(cfg.chunk_growth))
     window = cap if explicit_window else max(1, cap // (growth * growth))
     n_prep = resolve_prep_threads(cfg)
-    executor = BatchExecutor(cfg, device, metrics)
+    # the warmup plane: as soon as prep yields a hole's first
+    # RefineRequest, its group's canonical programs are captured on this
+    # background thread, concurrently with ingest/prep
+    warm = None
+    if cfg.warmup_compile:
+        from ccsx_tpu_torch.pipeline.warmup import WarmupCompiler
+
+        warm = WarmupCompiler()
+    executor = BatchExecutor(cfg, device, metrics, warmup=warm)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
                                  device=device, metrics=metrics,
                                  prefilter=cfg.prefilter,
                                  seed_device_min_t=cfg.seed_device_min_t)
+
+    def warm_hole(h) -> None:
+        if warm is not None and isinstance(h.req, RefineRequest):
+            executor.warm_refine(h.req, hole_id=h.idx)
     resume = journal.holes_done
     active: List[_Hole] = []
     finished: Dict[int, _Hole] = {}
@@ -1500,6 +1711,7 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         if h.done:
             finished[h.idx] = h
         else:
+            warm_hole(h)
             active.append(h)
 
     try:
@@ -1609,6 +1821,9 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 if h.done:
                     finished[h.idx] = h
                 else:
+                    # a sweep can grow a hole's draft into a fresh (qmax,
+                    # tmax) group: predict its next window's shapes
+                    warm_hole(h)
                     still.append(h)
             active = still
             emit_ready()
@@ -1622,3 +1837,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         # may leave holes in prep — dropped, the caller's rc says why
         if pool is not None:
             pool.close()
+        # then the warmup thread (queued captures dropped, a running one
+        # finishes), before the caller closes the tracer: no warmup span
+        # outlives the trace file
+        if warm is not None:
+            warm.close()

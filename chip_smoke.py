@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (ccsx_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
-                          [--kernels-only | --host-planes-only]
+                          [--kernels-only | --host-planes-only |
+                           --warmup-only [--cold-holes N]]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -46,7 +47,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    before and read just after each run) must show the default run going
    through the band-local fill, the local fill and the walk, the rotband
    run through the rotating-band fill, and each bucketed run through its
-   arm's global fill and the walk.  A cold default run comes first (the
+   arm's global fill and the walk.  Each batched run's refine steps go
+   through the program cache (pipeline/graphs.py): a shape's first slab (or
+   bucketed dispatch) runs eagerly and the rest replay its CUDA graph, so
+   eager dispatches plus replays equal the slabs; iters + 1 global-fill and
+   walk launches in each graph and each eager dispatch, and each kernel's
+   launches equal to the replays times the launches of one plus the eager
+   dispatches' (``graph_pins``; the builds' priming runs and the warmup
+   plane's replays are counted apart).  A cold default run comes first (the
    CUDA modules of the torch ops load on first launch) and is reported
    apart; it records its local-fill groups, and the local fill's launch
    choices are timed on the one with the most rows.  Then the default and
@@ -73,7 +81,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with a final metrics event with no stall, forced groups and the card
    memory the run holds, and show one ``refine_packed`` span a slab, one
    ``pair_fill`` span a local-fill launch, and as many global-fill and
-   walk launches as the slabs ran rounds; the ``stats`` subcommand
+   walk launches as the replayed graphs hold rounds; the ``stats`` subcommand
    summarizes the first one's files, and every run's host time is split by
    stage (its final event's stage timers).  Then the stall watchdog on a
    blocked CUDA wait (a kernel spinning for about 2 s inside a device span,
@@ -105,7 +113,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    device screen steps launched from the pump thread); and a
    gzipped FASTQ cut short (holes 100 and 101, md5 prefix ``2feaead356``,
    one ``gzip_truncated``).  Each run reports its wall and its stage
-   split; the scale runs must give the pinned md5.
+   split; the scale runs must give the pinned md5;
+10. the warmup plane and the refine programs: the scale corpus under
+   ``--warmup`` and ``--trace --metrics`` on an empty program cache (each
+   packed group builds at most ``slab_shape_ladder`` + 1 programs; no
+   shape the warmup plane built, and no shape warm_refine predicted and
+   the run dispatched, books its first dispatch as a compile; the
+   driver's seconds waiting for the plane's builds; the shared pool's
+   bytes and ``device_buffer_bytes``); the pinned md5 under the default flags,
+   ``--warmup``, ``--no-warmup``, ``--banded-impl rotband``,
+   ``--pass-buckets 4,8,16,32`` and ``--prep-threads 0``, and the
+   long-molecule corpus's under its default flags; the packed step eager
+   against its replayed graph on the recorded slabs of an inline run
+   (equal outputs; CUDA-event and host times); the default, ``--warmup``
+   and eager arms (eager: ``graphs.CAPTURE_AT`` past every shape, on a
+   program cache of its own), alternating, five untraced ``--metrics``
+   runs each (quartiles of the wall, ``compute_s`` and the
+   ``refine_packed`` spans); two cold CLI processes of each dispatch arm
+   (the default, ``--warmup``, eager and a capture at each shape's first
+   dispatch), alternating, with the slabs each shape got.
+   ``--warmup-only`` runs this phase alone with three cold processes an
+   arm, and ``--cold-holes N`` adds two an arm on a corpus of N holes.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -789,10 +817,16 @@ def time_one_parent_rotband(dev, args, run_rot, reps, src, k):
     return {"order": "parent, new, new, parent", "ms": times}
 
 
+# the refine programs' stats (pipeline/graphs.stats()) of the last run_cli
+LAST: dict = {}
+
+
 def run_cli(argv, what, record=None):
     """cli.main(argv) under -v with its stderr captured (echoed without the
     per-hole segment dump); returns (seconds, launch counts reset just
-    before, the driver's counters).  The counters are the run's final
+    before, the driver's counters), and leaves the run's refine-program
+    stats (reset with the counts) in ``LAST["graphs"]``.  The counters are
+    the run's final
     metrics snapshot (utils/metrics.py), which -v prints as the last stderr
     line, ``[ccsx-tpu-torch] {json}``: the JAX package's keys
     (``holes_out``, ``pair_alignments``, ``host_fallbacks``, ...) and the
@@ -804,6 +838,7 @@ def run_cli(argv, what, record=None):
 
     from ccsx_tpu_torch import cli
     from ccsx_tpu_torch.ops import banded_cuda, cuda_ext
+    from ccsx_tpu_torch.pipeline import graphs
 
     err = io.StringIO()
     local = banded_cuda.batched_align_local
@@ -814,11 +849,13 @@ def run_cli(argv, what, record=None):
         banded_cuda.batched_align_local = recording
     try:
         cuda_ext.reset_counts()
+        graphs.reset_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             rc = cli.main(["-v", *argv])
         secs = time.perf_counter() - t0
         counts = dict(cuda_ext.LAUNCHES)
+        LAST["graphs"] = graphs.stats()
     finally:
         banded_cuda.batched_align_local = local
     text = err.getvalue()
@@ -838,6 +875,68 @@ def run_cli(argv, what, record=None):
         raise AssertionError(f"CLI {what}: device steps failed over to their "
                              f"replay: {driver}")
     return secs, counts, driver
+
+
+def graph_pins(what, counts, driver, stats, bucketed=False):
+    """The refine programs of one batched run (pipeline/graphs.py) against
+    its launch counts: a shape's eager dispatches (graphs.CAPTURE_AT) plus
+    its replays sum to the driver's slabs (or bucketed dispatches); every
+    program that replays is a CUDA graph whose one replay launches its
+    global fill and its walk iters + 1 times, and so does each eager
+    dispatch (the device-only loop); each kernel's launches equal the sum
+    over shapes of replays x the launches of one replay plus the eager
+    dispatches' launches.  The builds' priming runs and the warm replays
+    are counted apart.  Returns the record; raises on a broken rule."""
+    kind = "refine" if bucketed else "refine_packed"
+    at = 4 if bucketed else 3               # the key's iters
+    progs = {k: v for k, v in stats.items() if k[0] == kind}
+    replays = sum(v["replays"] for v in progs.values())
+    eager = sum(v["eager"] for v in progs.values())
+    want = driver["bucketed_dispatches" if bucketed else "slabs"]
+    problems = []
+    if replays + eager != want:
+        problems.append(f"replays {replays} + eager {eager} != {want}")
+    rounds = 0
+    for k, v in progs.items():
+        for form, n, one in (("replay", v["replays"], v["launches"]),
+                             ("eager", v["eager"], {
+                                 name: c / max(1, v["eager"])
+                                 for name, c in v["eager_launches"].items()})):
+            if not n:
+                continue
+            walk = one.get("traceback_walk", 0)
+            fills = (one.get("banded_global", 0)
+                     + one.get("banded_rotband", 0))
+            if (form == "replay" and not v["graph"]) or walk != fills or \
+                    walk != k[at] + 1:
+                problems.append(f"{k[:at + 4]}: {form}, graph {v['graph']},"
+                                f" one launches {one}")
+            rounds += n * walk
+    for name in ("banded_global", "banded_rotband", "traceback_walk"):
+        n = sum(v["replays"] * v["launches"].get(name, 0)
+                + v["eager_launches"].get(name, 0) for v in progs.values())
+        if n != counts[name]:
+            problems.append(f"{name}: {counts[name]} launches != {n} from "
+                            "replays and eager dispatches")
+    warm, parts = {}, {}
+    for v in progs.values():
+        for name, n in v["launches"].items():
+            warm[name] = warm.get(name, 0) + v["warm_replays"] * n
+        for name, x in v["build_parts"].items():
+            parts[name] = parts.get(name, 0.0) + x
+    per_shape = sorted((v["eager"] + v["replays"] for v in progs.values()),
+                       reverse=True)
+    rec = {"shapes": len(progs), "builds": sum(v["builds"]
+                                                for v in progs.values()),
+           "eager": eager, "replays": replays, "rounds": rounds,
+           "slabs_per_shape": per_shape,
+           "warm_replays": sum(v["warm_replays"] for v in progs.values()),
+           "warm_replay_launches": warm,
+           "build_s": sum(v["build_s"] for v in progs.values()),
+           "build_parts_s": parts}
+    if problems:
+        raise AssertionError(f"{what}: refine programs: {problems}")
+    return rec
 
 
 def phase_scale64(device, extra=(), n_holes=64, record=None):
@@ -866,11 +965,15 @@ def phase_scale64(device, extra=(), n_holes=64, record=None):
         raise AssertionError(f"scale corpus output {md5}/{len(data)} != "
                              f"pinned {SCALE64_MD5}/{SCALE64_BYTES}")
     bucketed = "--pass-buckets" in extra
-    if "--batch" not in extra and (
-            bool(driver["slabs"]) == bucketed
-            or bool(driver["bucketed_groups"]) != bucketed):
-        raise AssertionError(f"CLI {list(extra)}: the wrong grouping ran "
-                             f"({grouping})")
+    if "--batch" not in extra:
+        if (bool(driver["slabs"]) == bucketed
+                or bool(driver["bucketed_groups"]) != bucketed):
+            raise AssertionError(f"CLI {list(extra)}: the wrong grouping ran "
+                                 f"({grouping})")
+        LAST["pins"] = graph_pins(f"scale corpus {list(extra)}", counts,
+                                  driver, LAST["graphs"], bucketed)
+        print("[chip_smoke]   refine programs: " + json.dumps(LAST["pins"]),
+              flush=True)
     return secs, counts, driver
 
 
@@ -1141,29 +1244,6 @@ def check_local_group(groups):
     return rec
 
 
-def count_rounds(rounds):
-    """Wraps pipeline.batch._refine_loop so that each refine step appends
-    the rounds it ran (one global fill and one walk launch each) to
-    ``rounds``; returns the undo."""
-    from ccsx_tpu_torch.pipeline import batch
-
-    real = batch._refine_loop
-
-    def counting(one_round, *a, **k):
-        n = [0]
-
-        def counted(draft, dlen):
-            n[0] += 1
-            return one_round(draft, dlen)
-        try:
-            return real(counted, *a, **k)
-        finally:
-            rounds.append(n[0])
-
-    batch._refine_loop = counting
-    return lambda: setattr(batch, "_refine_loop", real)
-
-
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -1172,24 +1252,20 @@ def read_jsonl(path):
 def traced_scale64(device, tag):
     """The scale corpus through the default arm under --trace and --metrics:
     the pinned md5; the final metrics event with no stall, forced groups
-    and the card's allocated bytes; one refine_packed span a slab, one
-    pair_fill span a local-fill launch, and global-fill and walk launches
-    equal to the rounds the slabs ran.  Returns (seconds, record)."""
+    and the card's allocated bytes; one refine_packed span a slab and one
+    graph replay a span, one pair_fill span a local-fill launch, and
+    global-fill and walk launches equal to the rounds in the replayed
+    graphs (graph_pins).  Returns (seconds, record)."""
     from ccsx_tpu_torch.utils import trace
 
     bam = os.path.join(WORK, "in64.bam")
     out = os.path.join(WORK, f"rec_{tag}.fa")
     t = os.path.join(WORK, f"rec_{tag}_trace.jsonl")
     m = os.path.join(WORK, f"rec_{tag}_metrics.jsonl")
-    rounds = []
-    undo = count_rounds(rounds)
-    try:
-        secs, launches, driver = run_cli(
-            ["--device", device, *INLINE, "--trace", t, "--metrics", m,
-             bam, out],
-            f"traced ({tag}) on the scale corpus")
-    finally:
-        undo()
+    secs, launches, driver = run_cli(
+        ["--device", device, *INLINE, "--trace", t, "--metrics", m, bam,
+         out], f"traced ({tag}) on the scale corpus")
+    progs = graph_pins(f"traced ({tag})", launches, driver, LAST["graphs"])
     md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
     if md5 != SCALE64_MD5:
         raise AssertionError(f"traced scale corpus md5 {md5} != pinned")
@@ -1205,23 +1281,24 @@ def traced_scale64(device, tag):
         "stalls == 0": fin["stalls"] == 0,
         "groups_forced": fin["groups_forced"] is True,
         "device_buffer_bytes > 0": fin["device_buffer_bytes"] > 0,
-        "refine_packed spans == slabs == refine steps":
-            n_packed == fin["slabs"] == len(rounds) > 0,
+        "refine_packed spans == slabs == graph replays":
+            n_packed == fin["slabs"] == progs["replays"] > 0,
         "pair_fill spans == local-fill launches":
             n_pair == launches["banded_local"] > 0,
-        "global-fill and walk launches == rounds":
+        "global-fill and walk launches == rounds in the replayed graphs":
             launches["banded_global"] == launches["traceback_walk"]
-            == sum(rounds),
+            == progs["rounds"],
     }
     rec = {"seconds": secs, "slabs": fin["slabs"],
-           "refine_packed_spans": n_packed, "rounds": sum(rounds),
+           "refine_packed_spans": n_packed, "rounds": progs["rounds"],
+           "refine_programs": progs,
            "pair_fill_spans": n_pair, "launches": launches,
            "stalls": fin["stalls"],
            "device_buffer_bytes": fin["device_buffer_bytes"],
            "trace": t, "metrics": m, "final": fin}
     print(f"[chip_smoke] traced scale corpus ({tag}): {secs:.3f}s, md5 "
           f"{md5}, {n_packed} refine_packed spans, {fin['slabs']} slabs, "
-          f"{sum(rounds)} rounds, {n_pair} pair_fill spans, launches "
+          f"{progs['rounds']} rounds, {n_pair} pair_fill spans, launches "
           f"{launches}, stalls {fin['stalls']}, device_buffer_bytes "
           f"{fin['device_buffer_bytes']}", flush=True)
     failed = [k for k, ok in checks.items() if not ok]
@@ -1924,6 +2001,429 @@ def phase_host_planes(device, state, long_inline_s=None):
             "long_inline_s": long_inline_s}
 
 
+# ---- phase 10: the warmup plane and the refine programs -----------------
+
+EAGER = 10 ** 9      # a graphs.CAPTURE_AT no shape reaches: never capture
+# the dispatch arms: (graphs.CAPTURE_AT, None for the default; CLI flags)
+ARMS = {"default": (None, []), "warmup": (None, ["--warmup"]),
+        "eager": (EAGER, []), "capture_at_1": (1, [])}
+_ARM_CACHES: dict = {}
+
+
+class dispatch_arm:
+    """graphs.CAPTURE_AT ``at`` for the duration, on a program cache of the
+    arm's own (kept between its runs; the process's put back after), or
+    nothing when ``at`` is None."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def __enter__(self):
+        from ccsx_tpu_torch.pipeline import graphs
+
+        if self.at is not None:
+            own = _ARM_CACHES.setdefault(self.at, ({}, {}))
+            self.saved = graphs.CAPTURE_AT, graphs._programs, graphs._eager
+            graphs.CAPTURE_AT, graphs._programs, graphs._eager = \
+                self.at, *own
+        return self
+
+    def __exit__(self, *exc):
+        from ccsx_tpu_torch.pipeline import graphs
+
+        if self.at is not None:
+            graphs.CAPTURE_AT, graphs._programs, graphs._eager = self.saved
+
+
+def quartiles(xs):
+    """(first quartile, median, third quartile) of a list of numbers."""
+    q = statistics.quantiles(xs, n=4, method="inclusive")
+    return q[0], statistics.median(xs), q[2]
+
+
+def packed_span_s(fin):
+    """Seconds in the refine_packed spans of a final metrics event."""
+    return sum(g["compile_s"] + g["execute_s"]
+               for k, g in fin["groups"].items() if k.startswith("packed:"))
+
+
+def warm_traced_run(device):
+    """The scale corpus under --warmup and --trace --metrics, on an empty
+    program cache: the md5; the graph pins; each packed group builds at
+    most slab_shape_ladder + 1 programs; no shape the warmup plane built (a
+    warmup span that booked the compile) books its first dispatch as a
+    compile; no shape the warmup plane was asked for in advance
+    (warm_refine's predictions) and then dispatched books its first
+    dispatch as a compile; the driver's seconds waiting for the plane's
+    builds at its dispatches (BatchExecutor._warm_wait); the shared pool's
+    bytes and the run's device_buffer_bytes."""
+    import torch
+
+    from ccsx_tpu_torch.config import CcsConfig
+    from ccsx_tpu_torch.pipeline import batch, graphs
+
+    graphs.clear()
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, "warm_traced.fa")
+    t = os.path.join(WORK, "warm_trace.jsonl")
+    m = os.path.join(WORK, "warm_metrics.jsonl")
+    predicted, waits = [], []
+    real_submit = batch.BatchExecutor._submit_warm
+    real_wait = batch.BatchExecutor._warm_wait
+
+    def submit(ex, qmax, tmax, iters, R, urgent=False):
+        key = real_submit(ex, qmax, tmax, iters, R, urgent)
+        if not urgent:
+            predicted.append(key)
+        return key
+
+    def wait(ex, key):
+        t0 = time.perf_counter()
+        real_wait(ex, key)
+        waits.append(time.perf_counter() - t0)
+
+    batch.BatchExecutor._submit_warm = submit
+    batch.BatchExecutor._warm_wait = wait
+    try:
+        secs, launches, driver = run_cli(
+            ["--device", device, "--warmup", "--trace", t, "--metrics", m,
+             bam, out], "traced, --warmup, empty program cache")
+    finally:
+        batch.BatchExecutor._submit_warm = real_submit
+        batch.BatchExecutor._warm_wait = real_wait
+    stats = LAST["graphs"]
+    progs = graph_pins("warm traced run", launches, driver, stats)
+    md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
+    fin = [e for e in read_jsonl(m) if e["event"] == "final"][0]
+    spans = [r for r in read_jsonl(t) if r.get("ev") == "span"
+             and r["cat"] == "device" and "compile" in r]
+    shape = {}     # (group, shape) -> how its first span booked it
+    for r in sorted(spans, key=lambda r: r["ts"] + r["dur"]):
+        k = (r["args"]["group"], r["args"].get("shape"))
+        if r["compile"]:
+            shape[k] = "warmup" if r.get("warmup") else "inline"
+    warmed = {k for k, v in shape.items() if v == "warmup"}
+    bad = [r for r in spans if r["name"] == "refine_packed" and r["compile"]
+           and (r["args"]["group"], r["args"].get("shape")) in warmed]
+    pred = {(f"packed:q{k[1]}:t{k[2]}:i{k[3]}:b{k[6]}", f"R{k[4]}:S{k[5]}")
+            for k in predicted}
+    disp = {(r["args"]["group"], r["args"].get("shape")) for r in spans
+            if r["name"] == "refine_packed"}
+    inline = sum(shape.get(k) == "inline" for k in pred & disp)
+    per_group = {}
+    for k, v in stats.items():
+        if k[0] == "refine_packed" and v["builds"]:
+            g = k[1:4] + (k[6],)
+            per_group[g] = per_group.get(g, 0) + v["builds"]
+    ladder = CcsConfig().slab_shape_ladder
+    rec = {"seconds": secs, "md5": md5, "programs": progs,
+           "builds_per_group": {":".join(map(str, g)): n
+                                for g, n in per_group.items()},
+           "warmup_built": len(warmed & disp),
+           "inline_built": sum(v == "inline" for k, v in shape.items()
+                               if k in disp),
+           "predicted": len(pred), "predicted_dispatched": len(pred & disp),
+           "predicted_claimed_inline": inline,
+           "dispatch_wait_s": sum(waits), "dispatch_waits": len(waits),
+           "warmed_first_dispatch_compiles": len(bad),
+           "pool_bytes": graphs.pool_bytes(),
+           "device_buffer_bytes": fin["device_buffer_bytes"],
+           "memory_reserved": torch.cuda.memory_reserved(),
+           "split": stage_split(fin)}
+    print(f"[chip_smoke] phase 10 traced --warmup run, empty program cache: "
+          f"{rec}", flush=True)
+    problems = []
+    if md5 != SCALE64_MD5:
+        problems.append(f"md5 {md5}")
+    if not per_group or max(per_group.values()) > ladder + 1:
+        problems.append(f"builds per packed group {per_group} (ladder "
+                        f"{ladder})")
+    if bad:
+        problems.append(f"{len(bad)} first dispatches of warmed shapes "
+                        "booked as compiles")
+    if not pred & disp or inline:
+        problems.append(f"{inline} of {len(pred & disp)} dispatched "
+                        "predictions booked their first dispatch as a "
+                        "compile")
+    if problems:
+        raise AssertionError(f"phase 10 traced run: {problems}")
+    return rec
+
+
+def step_ab(device, reps=2):
+    """The packed refine step, eager (the early-exit step launched op by
+    op) against the replayed program, on the same slabs: every slab the
+    inline default run dispatched, recorded at its dispatch (each shape's
+    program built first where the run left none).  Each arm runs all the
+    slabs in turns (eager, graph, graph, eager; ``reps`` times), timed by
+    CUDA events around the whole set and by the host's clock around the
+    dispatch calls alone; every output must be equal."""
+    import torch
+
+    from ccsx_tpu_torch.config import AlignParams
+    from ccsx_tpu_torch.pipeline import batch, graphs
+
+    recorded = []
+    real = graphs.dispatch
+
+    def recording(key, make_step, specs, dev, *host):
+        recorded.append((key, make_step, specs, [h.clone() for h in host]))
+        return real(key, make_step, specs, dev, *host)
+
+    graphs.dispatch = recording
+    try:
+        phase_scale64(device, INLINE)
+    finally:
+        graphs.dispatch = real
+    dev = torch.device(device)
+    packed = [(graphs.program(k, mk, sp, dev), host)
+              for k, mk, sp, host in recorded if k[0] == "refine_packed"]
+    eager = []
+    for prog, _ in packed:
+        # the key: the shape, the arm, then graphs.config_key's fields
+        (_, qmax, tmax, iters, R, H, bimpl, align, max_ins,
+         *bp) = prog.key[:14]
+        eager.append(batch._refine_step_packed(
+            AlignParams(*align), max_ins, tmax, iters, H, tuple(bp[:5]),
+            (R, qmax), "rotband" if bimpl == "rotband" else ""))
+    hosts = [[h.pin_memory() for h in host] for _, host in packed]
+
+    def run_arm(kind):
+        outs = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        host_s = 0.0
+        a.record()
+        for (prog, _), step, host in zip(packed, eager, hosts):
+            t0 = time.perf_counter()
+            if kind == "graph":
+                outs.append(prog.run(*host))
+            else:
+                outs.append(step(*(h.to(dev, non_blocking=True)
+                                   for h in host)))
+            host_s += time.perf_counter() - t0
+        b.record()
+        torch.cuda.synchronize()
+        return outs, a.elapsed_time(b), host_s
+
+    times = {"eager": [], "graph": []}
+    ref = None
+    for _ in range(reps):
+        for kind in ("eager", "graph", "graph", "eager"):
+            outs, ev_ms, host_s = run_arm(kind)
+            times[kind].append({"event_ms": ev_ms, "host_s": host_s})
+            if ref is None:
+                ref = [o.cpu() for o in outs]
+            elif not all(torch.equal(o.cpu(), r) for o, r in zip(outs, ref)):
+                raise AssertionError(f"step A/B: the {kind} outputs differ")
+    rec = {"slabs": len(packed), "order": "eager, graph, graph, eager",
+           "eager": times["eager"], "graph": times["graph"],
+           "host_ms_per_slab": {k: statistics.median(
+               t["host_s"] for t in v) * 1e3 / max(1, len(packed))
+               for k, v in times.items()},
+           "event_ms": {k: statistics.median(t["event_ms"] for t in v)
+                        for k, v in times.items()}}
+    print(f"[chip_smoke] phase 10 step A/B on {len(packed)} recorded slabs: "
+          f"host ms a slab {rec['host_ms_per_slab']}, CUDA-event ms for the "
+          f"set {rec['event_ms']} (medians); runs {times}", flush=True)
+    if not packed:
+        raise AssertionError("step A/B: no packed slab was recorded")
+    return rec
+
+
+# one CLI process of a dispatch arm: argv[1] is graphs.CAPTURE_AT (0 keeps
+# the default), the rest the CLI's; the last stdout line is the refine
+# programs' record
+COLD_CODE = """import json, sys
+from ccsx_tpu_torch.pipeline import graphs
+if int(sys.argv[1]):
+    graphs.CAPTURE_AT = int(sys.argv[1])
+from ccsx_tpu_torch.cli import main
+rc = main(sys.argv[2:])
+st = [v for k, v in graphs.stats().items() if k[0] == "refine_packed"]
+print(json.dumps({
+    "slabs_per_shape": sorted((v["eager"] + v["replays"] for v in st),
+                              reverse=True),
+    "eager": sum(v["eager"] for v in st),
+    "replays": sum(v["replays"] for v in st),
+    "builds": sum(v["builds"] for v in st),
+    "build_s": sum(v["build_s"] for v in st)}))
+sys.exit(rc)
+"""
+
+
+def cold_processes(device, src, arms, rounds, tag, want_md5=None):
+    """``rounds`` CLI processes of each dispatch arm (ARMS) on ``src``,
+    alternating: each process's wall, its run's elapsed_s, compute_s and
+    refine_packed spans, and its refine programs (slabs per shape, eager
+    dispatches, replays, builds and their seconds).  Every output must be
+    equal (to ``want_md5`` when given)."""
+    recs = {arm: [] for arm in arms}
+    md5s = set()
+    for i in range(rounds):
+        for arm in arms:
+            at, extra = ARMS[arm]
+            out = os.path.join(WORK, f"cold_{tag}_{arm}_{i}.fa")
+            m = os.path.join(WORK, f"cold_{tag}_{arm}_{i}_metrics.jsonl")
+            argv = [sys.executable, "-c", COLD_CODE, str(at or 0),
+                    "--device", device, *extra, "--metrics", m, src, out]
+            t0 = time.perf_counter()
+            r = subprocess.run(argv, cwd=HERE, capture_output=True,
+                               text=True, timeout=900,
+                               env=dict(os.environ, PYTHONPATH=HERE))
+            secs = time.perf_counter() - t0
+            md5 = (hashlib.md5(open(out, "rb").read()).hexdigest()
+                   if os.path.exists(out) else None)
+            md5s.add(md5)
+            if r.returncode != 0 or md5 is None:
+                raise AssertionError(f"cold process {tag} {arm} {i}: rc "
+                                     f"{r.returncode}\n{r.stderr[-4000:]}")
+            fin = [e for e in read_jsonl(m) if e["event"] == "final"][0]
+            recs[arm].append({"process_s": secs,
+                              "elapsed_s": fin["elapsed_s"],
+                              "compute_s": fin["compute_s"],
+                              "refine_packed_s": packed_span_s(fin),
+                              "slabs": fin["slabs"],
+                              **json.loads(r.stdout.splitlines()[-1])})
+            print(f"[chip_smoke] phase 10 cold process {tag} {arm} {i}: "
+                  f"{recs[arm][-1]}", flush=True)
+    if len(md5s) != 1 or (want_md5 and md5s != {want_md5}):
+        raise AssertionError(f"cold processes {tag}: md5s {md5s}")
+    med = {arm: {k: statistics.median(r[k] for r in rr)
+                 for k in ("elapsed_s", "process_s", "compute_s",
+                           "refine_packed_s")} for arm, rr in recs.items()}
+    print(f"[chip_smoke] phase 10 cold processes {tag}, medians: {med}",
+          flush=True)
+    return {"runs": recs, "medians": med, "md5": md5s.pop()}
+
+
+def _corpus_holes(args):
+    from ccsx_tpu_torch.utils import synth
+
+    seed, holes, counts, tlens = args
+    recs = []
+    for h, n, tlen in zip(holes, counts, tlens):
+        rng = np.random.default_rng([seed, h])
+        z = synth.make_zmw(rng, int(tlen), int(n), movie="mv", hole=str(h),
+                           partial_ends=True, **synth.ERR)
+        if h % 5 == 0:
+            z.passes.insert(len(z.passes) // 2,
+                            synth.read_through(rng, z.template, **synth.ERR))
+            z.strands.insert(len(z.strands) // 2, 0)
+        recs += [(name, synth.enc.decode(p).encode(), None)
+                 for name, p in zip(z.names, z.passes)]
+    return recs
+
+
+def big_corpus(path, n_holes, seed=2048, procs=8):
+    """A scale corpus of ``n_holes`` holes made as synth.make_big_bam makes
+    its holes (lognormal pass counts, 1-5 kb templates, partial ends, a
+    read-through every 5th hole), with a generator per hole so that
+    ``procs`` worker processes make it together."""
+    import multiprocessing
+
+    from ccsx_tpu_torch.io import bam
+    from ccsx_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    counts = synth.sample_pass_counts(rng, n_holes)
+    tlens = rng.integers(1000, 5001, n_holes)
+    parts = [(seed, range(k, n_holes, procs), counts[k::procs],
+              tlens[k::procs]) for k in range(procs)]
+    with multiprocessing.get_context("fork").Pool(procs) as pool:
+        chunks = pool.map(_corpus_holes, parts)
+    by_hole = {}
+    for chunk in chunks:
+        for rec in chunk:
+            by_hole.setdefault(int(rec[0].split("/")[1]), []).append(rec)
+    bam.write_bam(path, [r for h in sorted(by_hole) for r in by_hole[h]],
+                  bgzf=True)
+
+
+def phase_warmup(device, runs=5, cold=2, big_holes=0):
+    """Phase 10, the warmup plane and the refine programs on the card: the
+    traced --warmup run on an empty program cache (warm_traced_run); the
+    scale corpus's md5 under the default flags, --warmup, --no-warmup,
+    --banded-impl rotband, --pass-buckets 4,8,16,32 and --prep-threads 0,
+    with the shared pool's bytes after each, and the long-molecule corpus's
+    in its default arm; the step A/B (step_ab); the default, --warmup and
+    eager arms (the eager one in-process, graphs.CAPTURE_AT past every
+    shape on a cache of its own), alternating, ``runs`` untraced --metrics
+    runs each (medians and quartiles of the wall, compute_s and the
+    refine_packed spans); ``cold`` CLI processes of each dispatch arm
+    (ARMS) on the scale corpus, alternating; and with ``big_holes``, two
+    of each on a corpus of that many holes (big_corpus)."""
+    import torch
+
+    from ccsx_tpu_torch.pipeline import graphs
+    from ccsx_tpu_torch.utils import synth
+
+    traced = warm_traced_run(device)
+    arms = {"default": [], "warmup": ["--warmup"],
+            "no_warmup": ["--no-warmup"],
+            "rotband": ["--banded-impl", "rotband"], "bucketed": BUCKETS,
+            "inline": INLINE}
+    pinned = {}
+    for arm, extra in arms.items():
+        secs, counts, _ = phase_scale64(device, extra)
+        pinned[arm] = {"seconds": secs, "launches": counts,
+                       "programs": LAST["pins"],
+                       "pool_bytes": graphs.pool_bytes(),
+                       "memory_reserved": torch.cuda.memory_reserved()}
+    print(f"[chip_smoke] phase 10 pool bytes after each arm: "
+          f"{ {a: r['pool_bytes'] for a, r in pinned.items()} }", flush=True)
+    fa = os.path.join(WORK, "long.fa")
+    if not os.path.exists(fa):
+        synth.make_long_fasta(fa, 4, 50000, 8, 11)
+    lout = os.path.join(WORK, "warm_long.fa")
+    secs, _, _ = run_cli([*LONG_FLAGS, "--device", device, fa, lout],
+                         "the long-molecule corpus, default flags")
+    lmd5 = hashlib.md5(open(lout, "rb").read()).hexdigest()
+    pinned["long_default"] = {"seconds": secs, "md5": lmd5}
+    print(f"[chip_smoke] phase 10 long-molecule default flags: {secs:.3f}s, "
+          f"md5 {lmd5}", flush=True)
+    if lmd5 != LONG_MD5:
+        raise AssertionError(f"phase 10 long-molecule md5 {lmd5}")
+    ab = step_ab(device)
+
+    walls = {"default": [], "warmup": [], "eager": []}
+    for i in range(runs):
+        for arm in walls:
+            at, extra = ARMS[arm]
+            with dispatch_arm(at):
+                secs, _, fin, out = host_plane_run(device, extra,
+                                                   f"warm_{arm}_{i}")
+            md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
+            if md5 != SCALE64_MD5:
+                raise AssertionError(f"phase 10 {arm} run {i}: md5 {md5}")
+            walls[arm].append({"seconds": secs, "compute_s": fin["compute_s"],
+                               "refine_packed_s": packed_span_s(fin),
+                               "elapsed_s": fin["elapsed_s"]})
+    summary = {arm: {k: quartiles([r[k] for r in rr]) for k in (
+        "seconds", "compute_s", "refine_packed_s")}
+        for arm, rr in walls.items()}
+    for arm, v in summary.items():
+        print(f"[chip_smoke] phase 10 {arm}, {runs} untraced runs, (q1, "
+              "median, q3): " + ", ".join(
+                  f"{k} ({a:.4f}, {b:.4f}, {c:.4f})"
+                  for k, (a, b, c) in v.items()), flush=True)
+
+    procs = cold_processes(device, os.path.join(WORK, "in64.bam"),
+                           list(ARMS), cold, "scale64", SCALE64_MD5)
+    rec = {"traced": traced, "pinned": pinned, "step_ab": ab,
+           "walls": walls, "walls_quartiles": summary, "cold": procs}
+    if big_holes:
+        src = os.path.join(WORK, f"big{big_holes}.bam")
+        t0 = time.perf_counter()
+        big_corpus(src, big_holes)
+        print(f"[chip_smoke] phase 10 corpus of {big_holes} holes made in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        rec["cold_big"] = cold_processes(device, src, list(ARMS), 2,
+                                         f"big{big_holes}")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1944,6 +2444,13 @@ def main(argv=None) -> int:
     ap.add_argument("--host-planes-only", action="store_true",
                     help="build, run the scale corpus once, then phase 9 "
                          "(the host planes) alone, printing its record")
+    ap.add_argument("--warmup-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 10 "
+                         "(the warmup plane and the refine programs) "
+                         "alone, printing its record")
+    ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
+                    help="with --warmup-only: also two cold CLI processes "
+                         "of each dispatch arm on a corpus of N holes")
     args = ap.parse_args(argv)
     PARENT.update(walk=args.parent_walk, rotband=args.parent_rotband or ())
     if not torch.cuda.is_available():
@@ -1981,6 +2488,11 @@ def main(argv=None) -> int:
     if args.host_planes_only:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"host_planes": phase_host_planes("cuda", nstate)}))
+        return 0
+    if args.warmup_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"warmup": phase_warmup(
+            "cuda", cold=3, big_holes=args.cold_holes)}))
         return 0
 
     records = phase_kernels("cuda")
@@ -2029,6 +2541,7 @@ def main(argv=None) -> int:
     crash = phase_crash("cuda", cold_driver)
     planes = phase_host_planes("cuda", nstate, {
         arm: long_arms[arm]["seconds"] for arm in ("default", "screen")})
+    warm = phase_warmup("cuda")
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -2081,7 +2594,8 @@ def main(argv=None) -> int:
                                         "profiles": long_prof},
                       "flight_recorder": recorder,
                       "crash_resume": crash,
-                      "host_planes": planes}))
+                      "host_planes": planes,
+                      "warmup": warm}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

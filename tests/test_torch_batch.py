@@ -384,12 +384,19 @@ def test_data_fault_replays_per_request_and_is_reported(corpus, tmp_path,
                                                         monkeypatch, capsys):
     """A slab failing on its data (not the card's fault) replays each of
     its requests on the per-hole round: same bytes, rc 0, and the run says
-    so without -v."""
+    so without -v.  The step fails on real slabs only: its program's
+    build runs it on an all-zero slab (pipeline/graphs.py), which a data
+    fault cannot reach."""
     fa, ref = corpus
+    real = batch._refine_step_packed
 
     def bad_data(*a, **k):
-        def run_step(*args):
-            raise IndexError("a slab's own data is at fault")
+        step = real(*a, **k)
+
+        def run_step(big, small):
+            if bool(small.any()):
+                raise IndexError("a slab's own data is at fault")
+            return step(big, small)
         return run_step
 
     monkeypatch.setattr(batch, "_refine_step_packed", bad_data)
@@ -409,9 +416,11 @@ def test_oom_in_a_slab_bisects_with_the_same_bytes(corpus, tmp_path,
         step = real(*a, **k)
 
         def wrapped(big, small):
-            calls.append(1)
-            if len(calls) == 1:
-                raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+            # the first real slab (a program's build runs an all-zero one)
+            if bool(small.any()):
+                calls.append(1)
+                if len(calls) == 1:
+                    raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
             return step(big, small)
         return wrapped
 

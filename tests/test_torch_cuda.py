@@ -8,6 +8,8 @@ with one (and without JAX, which these tests do not need):
 Every output is an integer or a byte: the tolerance is exact equality.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -463,3 +465,243 @@ def test_walk_ring_choices_match_plain(ring, cuda):
     want = traceback.project_plain(*host, 320, 4)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w), ring
+
+
+# ---- the refine programs: CUDA graphs (pipeline/graphs.py) -----------------
+
+def _refine_slabs(rng, cfg, n_slabs=2, tmax=1536):
+    """``n_slabs`` packed slabs of one shape (three holes of ~700 bp, qmax
+    1024)."""
+    sm = star.StarMsa(cfg.align, device="cpu")
+    ex = batch.BatchExecutor(cfg, device="cpu")
+    slabs = []
+    for _ in range(n_slabs):
+        reqs = []
+        for n in (5, 9, 6):
+            tpl = rng.integers(0, 4, 700).astype(np.uint8)
+            ps = [synth.mutate(rng, tpl, 0.02, 0.05, 0.05) for _ in range(n)]
+            qs, qlens, mask = sm.pack(ps, cfg.pass_buckets, cfg.max_passes)
+            reqs.append(star.RefineRequest(qs, qlens, mask, ps[0], 2))
+        slabs.append(ex._stack_slab(reqs, range(len(reqs)), 1024, tmax))
+    return ex, slabs
+
+
+@pytest.mark.parametrize("impl", ["", "rotband"])
+def test_packed_program_replays_match_the_eager_step(impl, cuda):
+    """Two same-shape slabs through one captured program, both dispatched
+    before either is read: each equals the eager early-exit step on the
+    CPU; a replay adds (iters + 1) global-fill and walk launches, and the
+    build adds none."""
+    from ccsx_tpu_torch.pipeline import graphs
+
+    cfg = CcsConfig(is_bam=False, banded_impl=impl)
+    _, slabs = _refine_slabs(np.random.default_rng(12), cfg)
+    ex = batch.BatchExecutor(cfg, device="cuda")
+    R, H = slabs[0][0].shape[0], slabs[0][4].shape[0]
+    fill = "banded_rotband" if impl else "banded_global"
+    cuda_ext.reset_counts()
+    prog = ex._packed_program(1024, 1536, 2, R, H)
+    assert prog.graph is not None and sum(cuda_ext.LAUNCHES.values()) == 0
+    assert prog.launches == {fill: 3, "traceback_walk": 3}
+    outs = [prog.run(*batch._pack_slab_args(a, pin=True)) for a in slabs]
+    assert cuda_ext.LAUNCHES[fill] == cuda_ext.LAUNCHES["traceback_walk"] == 6
+    for out, args in zip(outs, slabs):
+        step = batch._refine_step_packed(AlignParams(), 4, 1536, 2, H,
+                                         ex._bp_consts(), (R, 1024), impl)
+        want = step(*batch._pack_slab_args(args))
+        assert torch.equal(out.cpu(), want), impl
+    assert graphs.stats()[prog.key]["replays"] >= 2
+
+
+def test_bucketed_program_replay_matches_the_eager_step(cuda):
+    cfg = CcsConfig(is_bam=False)
+    rng = np.random.default_rng(13)
+    P, qmax, tmax, Z = 8, 1024, 1536, 3
+    qs = np.full((Z, P, qmax), 5, np.uint8)
+    qlens = np.zeros((Z, P), np.int32)
+    ts = np.full((Z, tmax), 5, np.uint8)
+    tlens = np.ones(Z, np.int32)
+    for z, n in enumerate((5, 8, 0)):
+        tpl = rng.integers(0, 4, 800).astype(np.uint8)
+        ps = [synth.mutate(rng, tpl, 0.02, 0.05, 0.05) for _ in range(n)]
+        for k, p in enumerate(ps):
+            qs[z, k, :len(p)] = p
+            qlens[z, k] = len(p)
+        if ps:
+            ts[z, :len(ps[0])] = ps[0]
+            tlens[z] = len(ps[0])
+    buf = batch._pack_args((qs, qlens, ts, tlens, qlens > 0))
+    prog = batch.BatchExecutor(cfg, device="cuda")._bucketed_program(
+        P, qmax, tmax, 2, Z)
+    assert prog.graph is not None
+    step = batch._refine_step(AlignParams(), 4, tmax, 2, (10, 5, 80, 80, 60),
+                              (P, qmax))
+    assert torch.equal(prog.run(buf.pin_memory()).cpu(), step(buf))
+
+
+def test_capture_on_a_thread_while_another_launches(cuda):
+    """A program captured on a second thread while this thread launches
+    torch ops and the local fill and reads results back (the warmup thread
+    against the driver and the prep pool's pump): the capture succeeds and
+    its replay equals the eager step (a tmax no other test builds, so the
+    capture happens here)."""
+    cfg = CcsConfig(is_bam=False, slab_rows=64)
+    rng = np.random.default_rng(14)
+    _, slabs = _refine_slabs(rng, cfg, 1, tmax=2048)
+    R, H = slabs[0][0].shape[0], slabs[0][4].shape[0]
+    ex = batch.BatchExecutor(cfg, device="cuda")
+    t, qs, qlens = _passes(rng, 16, 600, 1024)
+    q, ql = torch.from_numpy(qs).to(cuda), torch.from_numpy(qlens).to(cuda)
+    tt = torch.from_numpy(np.pad(t, (0, 1024 - len(t)),
+                                 constant_values=5))[None].expand(16, 1024)
+    tt = tt.contiguous().to(cuda)
+    tl = torch.full((16,), len(t), dtype=torch.int32, device=cuda)
+    box = {}
+
+    def build():
+        try:
+            box["prog"] = ex._packed_program(1024, 2048, 2, R, H)
+        except BaseException as e:        # re-raised below
+            box["err"] = e
+
+    th = threading.Thread(target=build)
+    th.start()
+    while th.is_alive():
+        r = banded_cuda.batched_align_local(q, ql, tt, tl)
+        (q.float().cumsum(1).sum() + r.score.sum()).cpu()
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    out = box["prog"].run(*batch._pack_slab_args(slabs[0], pin=True))
+    step = batch._refine_step_packed(AlignParams(), 4, 2048, 2, H,
+                                     ex._bp_consts(), (R, 1024))
+    assert torch.equal(out.cpu(), step(*batch._pack_slab_args(slabs[0])))
+
+
+def test_no_replay_comes_between_another_replay_and_its_clone(cuda):
+    """Two programs captured one after the other into a fresh shared pool
+    (the second's static output may lie where the first keeps
+    intermediates).  A warm replay of the first, started on another thread
+    (the warmup thread) while the second's replay is launched and its
+    output not yet cloned, waits for that clone; the second's output
+    equals the eager step's."""
+    from ccsx_tpu_torch.pipeline import graphs
+
+    graphs.clear()
+    cfg = CcsConfig(is_bam=False)
+    rng = np.random.default_rng(16)
+    (_, first), (_, second) = (_refine_slabs(rng, cfg, 1, tmax=t)
+                               for t in (3072, 1536))
+    ex = batch.BatchExecutor(cfg, device="cuda")
+    R, H = second[0][0].shape[0], second[0][4].shape[0]
+    a = ex._packed_program(1024, 3072, 2, first[0][0].shape[0],
+                           first[0][4].shape[0])
+    b = ex._packed_program(1024, 1536, 2, R, H)
+    graph, box = b.graph, {}
+
+    class Between:
+        """b's graph: after its replay is launched, a's warm replay starts
+        on another thread and is given half a second to finish."""
+
+        def replay(self):
+            graph.replay()
+            th = box["thread"] = threading.Thread(target=a.warm)
+            th.start()
+            th.join(timeout=0.5)
+            box["waited"] = th.is_alive()
+
+    b.graph = Between()
+    try:
+        out = b.run(*batch._pack_slab_args(second[0], pin=True))
+    finally:
+        b.graph = graph
+        box["thread"].join()
+    step = batch._refine_step_packed(AlignParams(), 4, 1536, 2, H,
+                                     ex._bp_consts(), (R, 1024))
+    same = torch.equal(out.cpu(), step(*batch._pack_slab_args(second[0])))
+    # (a's replay waited for b's clone, b's output is the eager step's)
+    assert (box["waited"], same) == (True, True)
+
+
+def test_dispatch_runs_eagerly_then_replays_a_graph(cuda, monkeypatch):
+    """graphs.dispatch with CAPTURE_AT 2 on three same-shape slabs: the
+    first runs the step eagerly, the second captures the graph from the
+    same step without a priming run and replays it, the third replays it;
+    each equals the eager step on the CPU.  Launches: iters + 1 global
+    fills and walks for the eager run and for each replay.  The program
+    captured into the card's one shared pool."""
+    from ccsx_tpu_torch.pipeline import graphs
+
+    monkeypatch.setattr(graphs, "CAPTURE_AT", 2)
+    cfg = CcsConfig(is_bam=False)
+    _, slabs = _refine_slabs(np.random.default_rng(15), cfg, 3, tmax=2560)
+    ex = batch.BatchExecutor(cfg, device="cuda")
+    R, H = slabs[0][0].shape[0], slabs[0][4].shape[0]
+    spec = ex._packed_spec(1024, 2560, 2, R, H)
+    graphs.reset_stats()
+    cuda_ext.reset_counts()
+    outs = [graphs.dispatch(*spec, cuda, *batch._pack_slab_args(a, pin=True))
+            for a in slabs]
+    st = graphs.stats()[spec[0]]
+    assert (st["eager"], st["builds"], st["graph"], st["replays"]) == \
+        (1, 1, True, 2)
+    assert st["prime_launches"] == {}
+    assert st["eager_launches"] == st["launches"] == {
+        "banded_global": 3, "traceback_walk": 3}
+    assert cuda_ext.LAUNCHES["banded_global"] == 9
+    assert cuda_ext.LAUNCHES["traceback_walk"] == 9
+    prog = graphs._programs[spec[0]]
+    assert tuple(prog.graph.pool()) == tuple(graphs._pools[0])
+    for out, args in zip(outs, slabs):
+        step = batch._refine_step_packed(AlignParams(), 4, 2560, 2, H,
+                                         ex._bp_consts(), (R, 1024))
+        assert torch.equal(out.cpu(), step(*batch._pack_slab_args(args)))
+
+
+def test_oom_inside_a_capture_resplits_with_the_same_bytes(
+        cuda, tmp_path, monkeypatch, capsys):
+    """An out-of-memory error raised inside a CUDA graph capture reaches
+    the resplit ladder as itself: the programs are dropped, the slab's
+    halves are captured afresh, and the run gives the CPU run's bytes (rc
+    0, no per-request replay, no abort)."""
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.pipeline import graphs
+
+    rng = np.random.default_rng(21)
+    zs = [synth.make_zmw(rng, template_len=700, n_passes=5 + h % 3,
+                         movie="mv", hole=str(h)) for h in range(6)]
+    fa = tmp_path / "in.fa"
+    fa.write_text(synth.make_fasta(zs))
+    flags = ["-A", "-m", "500", "--batch", "on", "--prep-threads", "0"]
+    ref = tmp_path / "ref.fa"
+    assert cli.main([*flags, "--device", "cpu", str(fa), str(ref)]) == 0
+    real, real_clear = batch._refine_step_packed, graphs.clear
+    fired, clears = [], []
+
+    def oom_in_capture(*a, **k):
+        step = real(*a, **k)
+
+        def wrapped(big, small):
+            if torch.cuda.is_current_stream_capturing() and not fired:
+                fired.append(1)
+                raise torch.cuda.OutOfMemoryError("injected in a capture")
+            return step(big, small)
+        return wrapped
+
+    def clear():
+        clears.append(1)
+        real_clear()
+
+    real_clear()
+    monkeypatch.setattr(graphs, "CAPTURE_AT", 1)   # capture at dispatch 1
+    monkeypatch.setattr(graphs, "clear", clear)
+    monkeypatch.setattr(batch, "_refine_step_packed", oom_in_capture)
+    graphs.reset_stats()
+    out = tmp_path / "o.fa"
+    assert cli.main([*flags, "--device", "cuda", str(fa), str(out)]) == 0
+    err = capsys.readouterr().err
+    assert fired and clears
+    assert "resplitting" in err
+    assert "replaying" not in err and "device failure" not in err
+    assert out.read_bytes() == ref.read_bytes()
+    assert any(v["graph"] and v["replays"] for v in graphs.stats().values())

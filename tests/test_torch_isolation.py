@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.utils.journal", "ccsx_tpu_torch.utils.drain",
             "ccsx_tpu_torch.utils.fingerprint", "ccsx_tpu_torch.native",
             "ccsx_tpu_torch.native.io",
-            "ccsx_tpu_torch.pipeline.prep_pool"} <= set(mods)
+            "ccsx_tpu_torch.pipeline.prep_pool",
+            "ccsx_tpu_torch.pipeline.warmup",
+            "ccsx_tpu_torch.pipeline.graphs"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -328,6 +330,13 @@ COPIES = {
         {"from ccsx_tpu.ops import cuda_ext", "PrepPool._keep_fatal",
          "PrepPool._raise_fatal_locked"},
         set(), None),
+    # one capture worker and no settle time by default (a capture holds
+    # the interpreter lock and costs milliseconds, not an XLA compile's
+    # tens of seconds); the failure note says capture; promote, the
+    # dispatch path's wait for a predicted build
+    "pipeline/warmup.py": (
+        {"WarmupCompiler.__init__", "WarmupCompiler._run"},
+        {"WarmupCompiler.promote"}, set(), None),
 }
 
 
