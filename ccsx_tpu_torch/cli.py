@@ -12,8 +12,10 @@ the JAX package's spellings, defaults and error messages, and so do the
 recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
 ``--profile``), ``--max-failed-holes``, the crash-safety flags
 (``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``),
-``--prep-threads`` (the batched driver's prep pool), ``--no-warmup``
-and ``--bam``.  On the card the warmup plane is off unless ``--warmup``
+``--prep-threads`` (the batched driver's prep pool), ``--no-warmup``,
+``--bam``, ``--telemetry-port``, the sharded-run flags (``--hosts``,
+``--host-id``, ``--merge-shards``, ``--merge-unmarked``) and
+``--make-index``.  On the card the warmup plane is off unless ``--warmup``
 is given (the JAX CLI's is on unless ``--no-warmup``, and so is the
 port's on the CPU): no run measured so far had it paying for itself on
 the card (PERF.md).
@@ -21,10 +23,15 @@ the card (PERF.md).
     python -m ccsx_tpu_torch.cli [options] <INPUT> <OUTPUT>
     python -m ccsx_tpu_torch.cli stats <trace/metrics JSONL>...
     python -m ccsx_tpu_torch.cli blackbox <ring file or dir>...
+    python -m ccsx_tpu_torch.cli top <host:port|metrics JSONL>...
+    python -m ccsx_tpu_torch.cli report <trace/metrics JSONL>... [-o HTML]
 
-The two subcommands are dispatched before the run's arguments are parsed,
-and their imports load neither torch nor jax: they read a run's files on a
-host whose card is wedged.
+The subcommands are dispatched before the run's arguments are parsed, and
+their imports load neither torch nor jax: they read a run's files or
+endpoints on a host whose card is wedged.
+
+A sharded run is one process per rank, ``--hosts N --host-id R`` each
+(several ranks may share one card), then ``--merge-shards N`` once.
 """
 
 from __future__ import annotations
@@ -143,10 +150,28 @@ Port options (long):
                       device_hang, rank_death, write, journal,
                       input_corrupt, disk_full, sigterm; CCSX_FAULTS env
                       equivalent; injected kills exit rc 57)
+--telemetry-port <p>  serve live telemetry for this run on a daemon
+                      thread: GET /metrics (Prometheus text), /healthz
+                      (ok|degraded + stall/fallback detail), /progress
+                      (JSON, windowed-rate ETA); the port auto-bumps
+                      when taken, sharded runs offset per rank; 0 = off
+                      [0]
+--hosts <int>         total ranks in a sharded run
+--host-id <int>       this rank, in [0, --hosts)
+--merge-shards <N>    merge OUTPUT.shard0..N-1 into OUTPUT and exit
+--merge-unmarked      with --merge-shards: merge a shard set that has no
+                      completion markers at all
+--make-index          build INPUT's BGZF hole index sidecar
+                      (<INPUT>.ccsx_idx) for byte-range sharded ingest,
+                      then exit
 
 Subcommands:
 stats <jsonl>...      summarize trace/metrics JSONL files
 blackbox <path>...    render CCSX_BLACKBOX ring dumps
+top <source>...       live dashboard over telemetry endpoints (host:port)
+                      and --metrics JSONL files, ranks aggregated
+report <jsonl>...     self-contained HTML report of a run's trace and
+                      metrics (--fleet DIR: a spool's jobs)
 """
 
 
@@ -203,6 +228,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-record-bytes", type=int, default=None,
                    dest="max_record_bytes", metavar="N")
     p.add_argument("--inject-faults", default=None, metavar="SPEC")
+    p.add_argument("--telemetry-port", type=int, default=0,
+                   dest="telemetry_port", metavar="PORT",
+                   help="Serve live telemetry for this run on a daemon "
+                        "thread: GET /metrics (Prometheus text), "
+                        "/healthz (ok|degraded + stall/fallback "
+                        "detail), /progress (JSON, windowed-rate ETA). "
+                        "The port auto-bumps when taken; sharded runs "
+                        "offset per rank.  0 = off [0]")
+    # sharded runs (parallel/distributed.py): one process per rank with
+    # --hosts N --host-id R, then merge with --merge-shards N
+    p.add_argument("--hosts", type=int, default=None,
+                   help="Total hosts in a sharded run")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="This host's rank in [0, --hosts)")
+    p.add_argument("--merge-shards", type=int, default=None, metavar="N",
+                   help="Merge OUTPUT.shard0..N-1 into OUTPUT and exit")
+    p.add_argument("--merge-unmarked", action="store_true",
+                   help="With --merge-shards: merge a shard set that has "
+                        "NO completion markers at all (a legacy set "
+                        "predating markers; indistinguishable from a "
+                        "node-wide mid-run kill, so never assumed)")
+    p.add_argument("--make-index", action="store_true",
+                   help="Build INPUT's BGZF hole index sidecar "
+                        "(<INPUT>.ccsx_idx) for byte-range sharded "
+                        "multi-host ingest, then exit")
     return p
 
 
@@ -301,6 +351,7 @@ def config_from_args(args) -> CcsConfig:
         stall_timeout_s=args.stall_timeout,
         max_failed_holes=max_failed,
         salvage=args.salvage,
+        telemetry_port=args.telemetry_port,
         # an explicit bucket list selects the bucketed control path; the
         # default is pass packing (pipeline/pack.py)
         pass_packing=pass_buckets is None,
@@ -327,6 +378,16 @@ def main(argv: Optional[list] = None) -> int:
         from ccsx_tpu_torch.utils import blackbox
 
         return blackbox.blackbox_main(argv[1:])
+    if argv and argv[0] == "top":
+        # live telemetry dashboard (no torch import, as stats)
+        from ccsx_tpu_torch.utils import telemetry
+
+        return telemetry.top_main(argv[1:])
+    if argv and argv[0] == "report":
+        # static HTML run report from trace/metrics JSONL artifacts
+        from ccsx_tpu_torch.utils import report as report_mod
+
+        return report_mod.report_main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.help:
         print(USAGE, end="")
@@ -335,6 +396,46 @@ def main(argv: Optional[list] = None) -> int:
         cfg = config_from_args(args)
     except SystemExit as e:
         return int(e.code or 0)
+    if args.inject_faults:
+        from ccsx_tpu_torch.utils import faultinject
+
+        try:
+            faultinject.arm(args.inject_faults)
+        except ValueError as e:
+            print(f"Error: --inject-faults: {e}", file=sys.stderr)
+            return exitcodes.RC_FATAL
+    if args.make_index:
+        if not cfg.is_bam:
+            print("Error: --make-index requires BAM input (BGZF "
+                  "container)", file=sys.stderr)
+            return exitcodes.RC_FATAL
+        from ccsx_tpu_torch.io import bam as bam_mod
+        from ccsx_tpu_torch.io import bamindex
+
+        try:
+            idx = bamindex.build_index(
+                args.input, max_record_bytes=cfg.max_record_bytes)
+        except (OSError, bam_mod.BamError) as e:
+            print(f"Error: --make-index failed: {e}", file=sys.stderr)
+            return exitcodes.RC_FATAL
+        print(f"[ccsx-tpu-torch] indexed {idx['n_holes']} holes / "
+              f"{idx['n_records']} records -> "
+              f"{args.input}{bamindex.INDEX_SUFFIX}", file=sys.stderr)
+        return exitcodes.RC_OK
+    if args.merge_shards is not None:
+        from ccsx_tpu_torch.parallel.distributed import merge_shards
+
+        try:
+            n = merge_shards(args.output, args.merge_shards,
+                             allow_unmarked=args.merge_unmarked)
+        except (OSError, ValueError) as e:
+            # incomplete or mixed-mode shards, unreadable files: an
+            # expected refusal, rc 1 without a traceback
+            print(f"Error: {e}", file=sys.stderr)
+            return exitcodes.RC_FATAL
+        print(f"[ccsx-tpu-torch] merged {n} records from "
+              f"{args.merge_shards} shards", file=sys.stderr)
+        return exitcodes.RC_OK
     if args.bam_out and args.fastq:
         print("Error: --fastq and --bam are mutually exclusive",
               file=sys.stderr)
@@ -345,17 +446,33 @@ def main(argv: Optional[list] = None) -> int:
         print("Error: --bam does not support --journal (the BAM "
               "container cannot be appended on resume)", file=sys.stderr)
         return exitcodes.RC_FATAL
-    if args.inject_faults:
-        from ccsx_tpu_torch.utils import faultinject
-
-        try:
-            faultinject.arm(args.inject_faults)
-        except ValueError as e:
-            print(f"Error: --inject-faults: {e}", file=sys.stderr)
+    sharded = args.hosts is not None and args.hosts > 1
+    if sharded:
+        if args.host_id is None:
+            print("Error: --hosts requires --host-id", file=sys.stderr)
+            return exitcodes.RC_FATAL
+        if args.bam_out:
+            # shard files are text FASTA/FASTQ merged by merge_shards
+            print("Error: --bam is not supported with --hosts "
+                  "(use --fastq and convert the merged output)",
+                  file=sys.stderr)
+            return exitcodes.RC_FATAL
+        if args.batch == "off":
+            # the shard writer needs per-hole ordinals, which only the
+            # batched driver gives
+            print("Error: --batch off is not supported with --hosts",
+                  file=sys.stderr)
             return exitcodes.RC_FATAL
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
     def _run():
+        if sharded:
+            from ccsx_tpu_torch.parallel.distributed import \
+                run_pipeline_sharded
+
+            return run_pipeline_sharded(
+                args.input, args.output, cfg, args.host_id, args.hosts,
+                journal_path=args.journal, inflight=args.inflight)
         return run_pipeline(args.input, args.output, cfg, batch=args.batch,
                             inflight=args.inflight,
                             journal_path=args.journal)

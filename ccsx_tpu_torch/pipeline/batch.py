@@ -1629,6 +1629,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     at admission and again after each sweep (its next window may fall in
     another group), as the JAX driver does.
 
+    A writer with ``put_at(idx, name, seq, qual)`` (a sharded rank's)
+    gets each record with its hole's index in ``stream``; others get
+    ``put``.
+
     Counters, stage timers and progress events go into ``metrics``; the
     spans into the installed tracer (the caller's, utils/trace.py).  The
     first ``journal.holes_done`` holes were written by an earlier run: they
@@ -1666,6 +1670,9 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         if warm is not None and isinstance(h.req, RefineRequest):
             executor.warm_refine(h.req, hole_id=h.idx)
     resume = journal.holes_done
+    # a sharded rank's writer (parallel/distributed.ShardWriter) takes each
+    # record with its hole's index in this stream, the merge's key
+    put_at = getattr(writer, "put_at", None)
     active: List[_Hole] = []
     finished: Dict[int, _Hole] = {}
     next_idx = 0       # next hole index to admit (inline prep)
@@ -1690,9 +1697,13 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 # a count budget aborts here, a fraction at end of run
                 check_failure_budget(metrics, cfg)
             elif h.cns is not None and h.cns[0]:
+                name = f"{h.zmw.movie}/{h.zmw.hole}/ccs"
                 with metrics.timer("write"), \
                         trace.span("write_record", cat="write"):
-                    writer.put(f"{h.zmw.movie}/{h.zmw.hole}/ccs", *h.cns)
+                    if put_at is not None:
+                        put_at(h.idx, name, *h.cns)
+                    else:
+                        writer.put(name, *h.cns)
                 metrics.holes_out += 1
                 wrote = True
             # flush-before-cursor + write fault point + advance

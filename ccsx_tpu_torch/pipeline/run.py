@@ -142,6 +142,23 @@ def guarded_stream(stream, cfg: CcsConfig, metrics, guard=None):
         yield z
 
 
+def holes_total_hint(in_path: str, cfg: CcsConfig):
+    """RAW hole count of the input when cheaply knowable (the BGZF hole
+    index sidecar, ``ccsx-tpu-torch --make-index``), else None: the
+    progress/ETA estimator's total (Metrics.holes_total).  Raw holes:
+    filtered holes count toward progress ``done``, so the basis
+    matches."""
+    if not cfg.is_bam or in_path == "-" or not os.path.exists(in_path):
+        return None
+    try:
+        from ccsx_tpu_torch.io import bamindex
+
+        idx = bamindex.load_index(in_path)
+    except (OSError, ValueError):
+        return None
+    return idx["n_holes"] if idx else None
+
+
 class _PyWriter:
     """FASTA/FASTQ writer over a file object (UTF-8, like the reference's).
     Tracks ``bytes_out`` — the exact output size after every record —
@@ -292,15 +309,42 @@ def drive_per_hole(stream, writer, cfg: CcsConfig, device,
             pool.shutdown(wait=True, cancel_futures=True)
 
 
+def open_run_io(in_path: str, out_path: str, cfg: CcsConfig, metrics,
+                journal_path: str | None):
+    """A single-process run's input stream, journal and writer, opened in
+    that order; None (after the message) when the input cannot be read or
+    the output cannot be written.  The progress total comes from a fresh
+    hole index of the input, where there is one."""
+    metrics.holes_total = holes_total_hint(in_path, cfg)
+    try:
+        stream = open_zmw_stream(in_path, cfg, metrics)
+    except (OSError, RuntimeError) as e:
+        print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
+        return None
+    # load under this run's fingerprint and reconcile the output tail
+    # (truncate torn / refuse untrustworthy) before the writer opens
+    journal = Journal.for_run(journal_path, in_path, cfg, out_path)
+    try:
+        writer = open_writer(out_path, append=bool(journal.holes_done),
+                             bam=cfg.bam_out, journaled=bool(journal_path))
+    except OSError as e:
+        print(f"Cannot open file for write! ({e})", file=sys.stderr)
+        return None
+    return stream, journal, writer
+
+
 def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
                  batch: str = "auto", inflight: int | None = None,
-                 journal_path: str | None = None) -> int:
+                 journal_path: str | None = None, open_io=None) -> int:
     """One run end to end.  ``batch``: 'on' runs the batched packed driver
     (pipeline/batch.py), 'off' the per-hole driver, 'auto' the batched one
     on the card and the per-hole one on the CPU.  ``inflight`` pins the
     batched driver's admission window.  ``journal_path`` (``--journal``)
     makes the run resumable: the holes it records as done are skipped and
-    the output continues from its journaled size.
+    the output continues from its journaled size.  ``open_io(metrics)``
+    opens the run's (stream, journal, writer), or returns None to end it
+    at rc 1; the default is ``open_run_io``, and a sharded rank
+    (parallel/distributed.py) passes its own.
 
     The run owns the Metrics (``--metrics``: JSONL events, the final one
     at the end whatever the exit path), the Tracer (``--trace``,
@@ -309,7 +353,9 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     unreadable input, an unwritable output or trace path, an invalid input
     stream, a failed write, a device fault; rc 2: the
     ``--max-failed-holes`` budget was exceeded; rc 75: drained by a signal,
-    resumable with the same command."""
+    resumable with the same command.  ``cfg.telemetry_port`` serves the
+    live endpoints (utils/telemetry.py) for the run's length; a port that
+    cannot be bound is a warning, never a failed run."""
     try:
         device = resolve_device(cfg.device)
     except RuntimeError as e:
@@ -334,26 +380,18 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
             return exitcodes.RC_FATAL
     # constructed before the stream, which books its filtered holes here
     metrics = RunMetrics(verbose=cfg.verbose, stream=cfg.metrics_stream())
-    try:
-        stream = open_zmw_stream(in_path, cfg, metrics)
-    except (OSError, RuntimeError) as e:
-        print(f"Error: Failed to open infile! ({e})", file=sys.stderr)
+    if open_io is None:
+        def open_io(m):
+            return open_run_io(in_path, out_path, cfg, m, journal_path)
+    opened = open_io(metrics)
+    if opened is None:
         metrics.close_stream()  # no final event for a non-run
         return exitcodes.RC_FATAL
-    # load under this run's fingerprint and reconcile the output tail
-    # (truncate torn / refuse untrustworthy) before the writer opens
-    journal = Journal.for_run(journal_path, in_path, cfg, out_path)
+    stream, journal, writer = opened
     # restore the journaled failure count, so --max-failed-holes is judged
     # over the whole logical run, resumes included
     metrics.holes_failed = journal.holes_failed
     metrics.holes_prior_emitted = journal.holes_emitted
-    try:
-        writer = open_writer(out_path, append=bool(journal.holes_done),
-                             bam=cfg.bam_out, journaled=bool(journal_path))
-    except OSError as e:
-        print(f"Cannot open file for write! ({e})", file=sys.stderr)
-        metrics.close_stream()
-        return exitcodes.RC_FATAL
     rc = exitcodes.RC_OK
     # graceful drain (utils/drain.py): SIGTERM/SIGINT stop admission;
     # in-flight holes finish, writer and journal settle, rc 75 resumable.
@@ -364,6 +402,7 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     # watchdog thread nor its file can leak, and an unwritable --trace
     # path is refused like an unwritable output path
     tracer = None
+    telem = None
     try:
         try:
             tracer = trace.Tracer(cfg.trace_path,
@@ -374,6 +413,10 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
                   file=sys.stderr)
             return exitcodes.RC_FATAL
         trace.install(tracer)
+        if cfg.telemetry_port:
+            from ccsx_tpu_torch.utils import telemetry
+
+            telem = telemetry.start(metrics, cfg.telemetry_port)
         if batched:
             from ccsx_tpu_torch.pipeline import batch as batch_mod
 
@@ -419,6 +462,10 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         trace.uninstall()
         if tracer is not None:
             tracer.close()
+        # endpoints down before the final event: a scrape never sees a
+        # half-closed Metrics object
+        if telem is not None:
+            telem.close()
         metrics.report()
     if metrics.failed_steps and not cfg.verbose:
         # a batched step that failed over is a fault to see, verbose or not

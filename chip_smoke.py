@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
                           [--kernels-only | --host-planes-only |
-                           --warmup-only [--cold-holes N]]
+                           --warmup-only [--cold-holes N] | --shards-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -133,7 +133,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the default, ``--warmup``, eager and a capture at each shape's first
    dispatch), alternating, with the slabs each shape got.
    ``--warmup-only`` runs this phase alone with three cold processes an
-   arm, and ``--cold-holes N`` adds two an arm on a corpus of N holes.
+   arm, and ``--cold-holes N`` adds two an arm on a corpus of N holes;
+11. the run seen and split from outside: the scale corpus's BGZF hole
+   index (``--make-index``, 64 holes); two ranks at once (``--hosts 2``,
+   each a CLI process on the one card, the kernels built once before) in
+   range mode, with ``top --once`` over their telemetry endpoints while
+   they run, then in round-robin mode (the index removed), then with rank
+   1 killed by ``rank_death`` at its 10th retirement under ``--journal``
+   (rc 57; the merge refuses the set) and resumed with the same command:
+   each merge to the pinned md5, each rank launching the default arm's
+   kernels with its wall, ``elapsed_s``, progress total, ``ingest_bytes``
+   and ``ingest_s``; a cold process under ``--telemetry-port`` scraped
+   from start to end (every ``/metrics`` parses, every ``/healthz`` is
+   ok, every ``/progress`` carries the total 64, programs captured
+   meanwhile, the pinned md5); the scale corpus in process three times
+   each without ``--telemetry-port``, with it, and with it scraped at
+   20 Hz, alternating; ``report`` over phase 7's first traced run (its
+   timeline names ``refine_packed`` and ``pair_fill`` spans); and a
+   corpus of 2048 holes (``big_corpus``) in one cold process against two
+   cold ranks in range mode, whose merge must be its bytes.
+   ``--shards-only`` runs this phase alone after one scale run and one
+   traced run.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -159,6 +179,7 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 
 SCALE64_MD5 = "0c83700d0fb67e3c89169f99574a9a2d"
 SCALE64_BYTES = 188359
+SCALE64_HOLES = 64
 # the long-molecule corpus: benchmarks/long_molecule.py's 4x50000 scenario
 # (4 holes, 50,000-base templates, 8 complete passes, seed 11), its flags
 # and the JAX package's md5 and pre-alignment counters for its default arm
@@ -1526,14 +1547,15 @@ CRASH_KERNELS = ("banded_global", "banded_local", "traceback_walk")
 CRASH_AT = 20
 
 
-def crash_cli(argv, env_extra=None, timeout=300):
-    """The port's CLI on ``argv`` (under -v) in a subprocess; returns rc,
-    seconds, stderr, the launch counts and the final metrics snapshot (None
-    after a hard exit)."""
+def crash_cli(argv, env_extra=None, timeout=300, verbose=True):
+    """The port's CLI on ``argv`` (under -v, unless ``verbose`` is False) in
+    a subprocess; returns rc, seconds, stderr, the launch counts and the
+    final metrics snapshot (None after a hard exit or without -v)."""
     env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
     env.pop("CCSX_FAULTS", None)
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", CRASH_RUNNER, "-v", *argv],
+    r = subprocess.run([sys.executable, "-c", CRASH_RUNNER,
+                        *(["-v"] if verbose else []), *argv],
                        cwd=HERE, env=env, capture_output=True, text=True,
                        timeout=timeout)
     secs = time.perf_counter() - t0
@@ -2424,6 +2446,348 @@ def phase_warmup(device, runs=5, cold=2, big_holes=0):
     return rec
 
 
+# phase 11: one-card sharded runs, each rank a CLI process of its own;
+# the retirement at which phase 11's killed rank dies
+SHARD_KILL_AT = 10
+
+
+def free_ports(n):
+    """A base port with the n ports from it free on this host now."""
+    import socket
+
+    for _ in range(50):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        base = s.getsockname()[1]
+        s.close()
+        if base + n > 65535:
+            continue
+        ok = True
+        for p in range(base, base + n):
+            t = socket.socket()
+            try:
+                t.bind(("0.0.0.0", p))
+            except OSError:
+                ok = False
+            finally:
+                t.close()
+        if ok:
+            return base
+    raise AssertionError("no free run of ports for the telemetry scrapes")
+
+
+def rank_cli(argv, metrics, env_extra=None):
+    """One rank's (or one process's) CLI run for phase 11: crash_cli
+    without -v (its per-hole dump is host time), the final event read from
+    ``metrics`` instead."""
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    r = crash_cli([*argv, "--metrics", metrics], env_extra, verbose=False)
+    if os.path.exists(metrics):
+        finals = [e for e in read_jsonl(metrics) if e["event"] == "final"]
+        r["final"] = finals[-1] if finals else None
+    return r
+
+
+def rank_record(r):
+    """What phase 11 keeps of one rank's (or one process's) run; raises
+    when it failed or missed a kernel of the default arm."""
+    fin = r["final"] or {}
+    n = r["launches"] or {}
+    if r["rc"] != 0 or not fin:
+        raise AssertionError(f"rank exited {r['rc']}\n{r['stderr'][-4000:]}")
+    if any(n.get(k, 0) <= 0 for k in CRASH_KERNELS) or "Traceback" in \
+            r["stderr"] or fin.get("device_dispatches", 0) <= 0:
+        raise AssertionError(f"rank launches {n}, device_dispatches "
+                             f"{fin.get('device_dispatches')}")
+    return {"process_s": r["seconds"], "elapsed_s": fin["elapsed_s"],
+            "holes_total": (fin.get("progress") or {}).get("total"),
+            "holes_in": fin["holes_in"], "holes_out": fin["holes_out"],
+            "ingest_bytes": fin["ingest_bytes"], "ingest_s": fin["ingest_s"],
+            "compute_s": fin["compute_s"], "slabs": fin["slabs"],
+            "device_dispatches": fin["device_dispatches"], "launches": n}
+
+
+def shard_pair(device, src, out, extra=(), ports=None, kill=None):
+    """Two ranks of ``src`` at once, each a CLI process on the one card,
+    then the merge (in process, timed).  ``ports``: the ranks' telemetry
+    base, with ``top --once`` rendered over both while they run.
+    ``kill``: rank 1 runs under ``--inject-faults rank_death@kill`` and
+    --journal (rank 0 too), must die with rc 57, the merge must refuse the
+    set, and the same command without the fault resumes it.  Returns the
+    ranks' records, the merge's seconds and the merged md5."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.parallel import distributed
+    from ccsx_tpu_torch.utils import telemetry
+
+    if os.path.exists(out):
+        os.remove(out)
+    for r in range(2):
+        for f in (distributed.shard_path(out, r),
+                  distributed.shard_path(out, r) + ".idx",
+                  distributed.done_path(out, r), f"{out}.j.shard{r}"):
+            if os.path.exists(f):
+                os.remove(f)
+    base = ["--device", device, *extra, "--hosts", "2"]
+    if ports:
+        base += ["--telemetry-port", str(ports)]
+    # under --journal every advance reaches the disk, so the killed
+    # rank's cursor is its kill point
+    env = {"CCSX_JOURNAL_FSYNC_S": "0"} if kill else None
+    if kill:
+        base += ["--journal", f"{out}.j"]
+    argvs = [base + ["--host-id", str(r), src, out] for r in range(2)]
+    ms = [f"{out}.m{r}.jsonl" for r in range(2)]
+    rec = {}
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(rank_cli, argvs[0], ms[0], env),
+                pool.submit(rank_cli, argvs[1] + (
+                    ["--inject-faults", f"rank_death@{kill}"] if kill
+                    else []), ms[1], env)]
+        if ports:
+            # a frame while both ranks answer, the last one before both
+            # have admitted a hole or once both have
+            eps = [f"127.0.0.1:{ports + r}" for r in range(2)]
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 300 and not all(
+                    f.done() for f in futs):
+                srcs = [telemetry.read_source(e, timeout=1.0) for e in eps]
+                if all(s["snap"] for s in srcs):
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        rc = cli.main(["top", "--once", "--no-color", *eps])
+                    if rc != 0 or "2 source(s)" not in buf.getvalue():
+                        raise AssertionError(f"top exited {rc}:\n"
+                                             f"{buf.getvalue()}")
+                    rec["top"] = buf.getvalue()
+                    if all(s["snap"].get("holes_in") for s in srcs):
+                        break
+                time.sleep(0.05)
+            if "top" not in rec:
+                raise AssertionError("phase 11: the ranks' endpoints never "
+                                     "answered together")
+            print("[chip_smoke] phase 11 top over both ranks:\n"
+                  + rec["top"], flush=True)
+        runs = [f.result() for f in futs]
+    if kill:
+        dead = runs[1]
+        journal = json.load(open(f"{out}.j.shard1"))
+        if dead["rc"] != 57 or journal["holes_done"] != kill:
+            raise AssertionError(f"killed rank exited {dead['rc']}, its "
+                                 f"journal {journal}")
+        rec["killed"] = {"seconds": dead["seconds"], "journal": journal}
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--merge-shards", "2", "ignored", out])
+        if rc != 1 or os.path.exists(out):
+            raise AssertionError(f"the merge of a dead rank's set exited {rc}")
+        runs[1] = rank_cli(argvs[1], ms[1], env)
+    rec["ranks"] = [rank_record(r) for r in runs]
+    t0 = time.perf_counter()
+    rc = cli.main(["--merge-shards", "2", "ignored", out])
+    rec["merge_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"merge exited {rc}")
+    rec["md5"] = _md5(open(out, "rb").read())
+    return rec
+
+
+def scraped_cold_run(device, src, out, port):
+    """A cold CLI process of ``src`` under --telemetry-port, scraped in a
+    loop from its start to its end (/progress, /metrics, /healthz), so
+    the scrapes overlap its refine programs' captures.  Every /metrics
+    body must parse, every /healthz say ok, every /progress carry the
+    index's total.  Returns the record."""
+    import urllib.error
+    import urllib.request
+
+    argv = [sys.executable, "-c", COLD_CODE, "0", "--device", device,
+            "--telemetry-port", str(port), src, out]
+    proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    counts = {"/progress": 0, "/metrics": 0, "/healthz": 0}
+    totals, done, bad = set(), 0, []
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t0 < 600:
+        for path in counts:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                            timeout=2.0) as resp:
+                    code, body = resp.status, resp.read().decode()
+            except urllib.error.HTTPError as e:
+                code, body = e.code, e.read().decode()
+            except OSError:
+                break                       # not up yet, or closed
+            counts[path] += 1
+            if path == "/progress":
+                prog = json.loads(body)["progress"]
+                totals.add(prog["total"])
+                done = max(done, prog["done"])
+            elif path == "/healthz":
+                if code != 200 or json.loads(body)["status"] != "ok":
+                    bad.append(f"/healthz {code} {body}")
+            else:
+                for line in body.splitlines():
+                    if not line.startswith("# TYPE ccsx_"):
+                        float(line.rpartition(" ")[2])
+        time.sleep(0.01)
+    stdout, stderr = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    md5 = _md5(open(out, "rb").read()) if os.path.exists(out) else None
+    rec = {"process_s": secs, "scrapes": counts, "totals": sorted(
+        t for t in totals if t is not None), "max_done": done,
+        "md5": md5, "programs": json.loads(stdout.splitlines()[-1])
+        if stdout.strip() else None}
+    print(f"[chip_smoke] phase 11 scraped cold run: {rec}", flush=True)
+    if proc.returncode != 0 or md5 != SCALE64_MD5:
+        raise AssertionError(f"scraped run rc {proc.returncode}, md5 {md5}\n"
+                             f"{stderr[-4000:]}")
+    if bad or totals != {SCALE64_HOLES} or min(counts.values()) == 0:
+        raise AssertionError(f"scraped run: {bad or rec}")
+    if not rec["programs"]["builds"]:
+        raise AssertionError("scraped run: no refine program was captured")
+    return rec
+
+
+def telemetry_walls(device, src, runs=3):
+    """The scale corpus in process, ``runs`` times each, alternating:
+    without --telemetry-port, with it and nobody scraping, and with it
+    scraped by a thread at 20 Hz.  Every output keeps the pinned md5."""
+    import threading
+    import urllib.request
+
+    walls = {"off": [], "on": [], "scraped": []}
+    for i in range(runs):
+        for arm in walls:
+            extra = list(INLINE)
+            stop = threading.Event()
+            scraper = None
+            if arm != "off":
+                port = free_ports(1)
+                extra += ["--telemetry-port", str(port)]
+            if arm == "scraped":
+                def scrape(port=port):
+                    while not stop.is_set():
+                        try:
+                            urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/metrics",
+                                timeout=1.0).read()
+                        except OSError:
+                            pass
+                        stop.wait(0.05)
+                scraper = threading.Thread(target=scrape, daemon=True)
+                scraper.start()
+            try:
+                secs, _, fin, out = host_plane_run(device, extra,
+                                                   f"telem_{arm}_{i}", src)
+            finally:
+                stop.set()
+                if scraper is not None:
+                    scraper.join()
+            if _md5(open(out, "rb").read()) != SCALE64_MD5:
+                raise AssertionError(f"telemetry {arm} run {i}: md5")
+            walls[arm].append({"seconds": secs,
+                               "elapsed_s": fin["elapsed_s"]})
+    print("[chip_smoke] phase 11 walls with and without --telemetry-port: "
+          + "; ".join(f"{a} " + " / ".join(f"{r['seconds']:.4f}" for r in rr)
+                      for a, rr in walls.items()), flush=True)
+    return walls
+
+
+def phase_shards(device, traced, big_holes=2048):
+    """Phase 11, the run seen and split from outside, on the card: the
+    scale corpus's hole index (``--make-index``: 64 holes); two ranks at
+    once in range mode (the index fresh; ``top`` over their endpoints) and
+    in round-robin mode (the index removed), and rank 1 killed by
+    ``rank_death`` under --journal and resumed, each merge to the pinned
+    md5; a cold process scraped throughout; the walls with and without
+    --telemetry-port; ``report`` over ``traced`` (phase 7's first traced
+    run's trace and metrics); and a ``big_holes`` corpus in one process
+    against two ranks (range mode), their merge the single process's
+    bytes."""
+    import contextlib
+    import io
+
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.io import bamindex
+    from ccsx_tpu_torch.utils import synth
+
+    src = os.path.join(WORK, "shard64.bam")
+    shutil.copy2(os.path.join(WORK, "in64.bam"), src)
+    rec = {"file_bytes": os.path.getsize(src)}
+    t0 = time.perf_counter()
+    if cli.main(["--make-index", src, "ignored"]) != 0:
+        raise AssertionError("--make-index failed")
+    rec["index_s"] = time.perf_counter() - t0
+    idx = bamindex.load_index(src)
+    if idx is None or idx["n_holes"] != SCALE64_HOLES:
+        raise AssertionError(f"index of the scale corpus: {idx}")
+    out = os.path.join(WORK, "shard64.fa")
+    rec["range"] = shard_pair(device, src, out, ports=free_ports(2))
+    rec["scraped"] = scraped_cold_run(
+        device, src, os.path.join(WORK, "scraped64.fa"), free_ports(1))
+    rec["telemetry_walls"] = telemetry_walls(device, src)
+    os.remove(src + bamindex.INDEX_SUFFIX)
+    rec["rr"] = shard_pair(device, src, out)
+    rec["killed"] = shard_pair(device, src, out, kill=SHARD_KILL_AT)
+    for mode in ("range", "rr", "killed"):
+        r = rec[mode]
+        print(f"[chip_smoke] phase 11 {mode}: md5 {r['md5']}, merge "
+              f"{r['merge_s']:.4f}s, ranks {r['ranks']}", flush=True)
+        if r["md5"] != SCALE64_MD5:
+            raise AssertionError(f"phase 11 {mode}: merged md5 {r['md5']}")
+    for k, r in enumerate(rec["range"]["ranks"]):
+        lo, hi = bamindex.hole_range(SCALE64_HOLES, k, 2)
+        if r["holes_total"] != hi - lo or not 0 < r["ingest_bytes"] <= \
+                rec["file_bytes"]:
+            raise AssertionError(f"phase 11 range rank: {r}")
+    for r in rec["rr"]["ranks"]:
+        if r["ingest_bytes"] != rec["file_bytes"] or r["holes_total"]:
+            raise AssertionError(f"phase 11 round-robin rank: {r}")
+
+    html = os.path.join(WORK, "report.html")
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        rc = cli.main(["report", *traced, "-o", html])
+    page = open(html, encoding="utf-8").read() if rc == 0 else ""
+    rec["report"] = {"bytes": len(page), "spans": {
+        k: page.count(f"<title>{k} [") for k in ("refine_packed",
+                                                 "pair_fill")}}
+    print(f"[chip_smoke] phase 11 report over {traced}: {rec['report']}",
+          flush=True)
+    if rc != 0 or "<svg" not in page or not all(rec["report"]["spans"]
+                                                .values()):
+        raise AssertionError(f"report: rc {rc}, {rec['report']}")
+
+    if big_holes:
+        big = os.path.join(WORK, f"big{big_holes}.bam")
+        t0 = time.perf_counter()
+        if not os.path.exists(big):
+            big_corpus(big, big_holes)
+        rec["big_made_s"] = time.perf_counter() - t0
+        rec["big_bytes"] = os.path.getsize(big)
+        one_out = os.path.join(WORK, f"big{big_holes}_one.fa")
+        one = rank_record(rank_cli(["--device", device, big, one_out],
+                                   one_out + ".jsonl"))
+        one_md5 = _md5(open(one_out, "rb").read())
+        if cli.main(["--make-index", big, "ignored"]) != 0:
+            raise AssertionError("--make-index failed on the big corpus")
+        pair = shard_pair(device, big,
+                          os.path.join(WORK, f"big{big_holes}.fa"))
+        rec["big"] = {"one": one, "one_md5": one_md5, "pair": pair}
+        print(f"[chip_smoke] phase 11 {big_holes} holes: one process "
+              f"{one}, md5 {one_md5}; two ranks {pair['ranks']}, merge "
+              f"{pair['merge_s']:.4f}s, md5 {pair['md5']}", flush=True)
+        if pair["md5"] != one_md5:
+            raise AssertionError(f"phase 11 {big_holes} holes: the merge "
+                                 "differs from the single process")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2448,6 +2812,10 @@ def main(argv=None) -> int:
                     help="build, run the scale corpus once, then phase 10 "
                          "(the warmup plane and the refine programs) "
                          "alone, printing its record")
+    ap.add_argument("--shards-only", action="store_true",
+                    help="build, run the scale corpus once and traced once, "
+                         "then phase 11 (the index, sharded runs, "
+                         "telemetry, report) alone, printing its record")
     ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
                     help="with --warmup-only: also two cold CLI processes "
                          "of each dispatch arm on a corpus of N holes")
@@ -2488,6 +2856,12 @@ def main(argv=None) -> int:
     if args.host_planes_only:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"host_planes": phase_host_planes("cuda", nstate)}))
+        return 0
+    if args.shards_only:
+        phase_scale64("cuda", INLINE)
+        _, first = traced_scale64("cuda", "t1")
+        print(json.dumps({"shards": phase_shards(
+            "cuda", (first["trace"], first["metrics"]))}))
         return 0
     if args.warmup_only:
         phase_scale64("cuda", INLINE)
@@ -2542,6 +2916,9 @@ def main(argv=None) -> int:
     planes = phase_host_planes("cuda", nstate, {
         arm: long_arms[arm]["seconds"] for arm in ("default", "screen")})
     warm = phase_warmup("cuda")
+    shards = phase_shards("cuda", (os.path.join(WORK, "rec_t1_trace.jsonl"),
+                                   os.path.join(WORK,
+                                                "rec_t1_metrics.jsonl")))
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -2595,7 +2972,8 @@ def main(argv=None) -> int:
                       "flight_recorder": recorder,
                       "crash_resume": crash,
                       "host_planes": planes,
-                      "warmup": warm}))
+                      "warmup": warm,
+                      "shards": shards}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

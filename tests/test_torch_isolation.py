@@ -56,7 +56,10 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.native.io",
             "ccsx_tpu_torch.pipeline.prep_pool",
             "ccsx_tpu_torch.pipeline.warmup",
-            "ccsx_tpu_torch.pipeline.graphs"} <= set(mods)
+            "ccsx_tpu_torch.pipeline.graphs",
+            "ccsx_tpu_torch.io.bamindex", "ccsx_tpu_torch.utils.telemetry",
+            "ccsx_tpu_torch.utils.report",
+            "ccsx_tpu_torch.parallel.distributed"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -86,10 +89,12 @@ def test_ast_scan_finds_no_forbidden_import():
 
 
 def test_stats_and_blackbox_run_without_torch_or_jax(tmp_path):
-    """`python -m ccsx_tpu_torch.cli stats ...` and `... blackbox ...` run
-    with torch, jax and the JAX package unimportable: they read a run's
-    files on a host whose card is wedged."""
+    """`python -m ccsx_tpu_torch.cli stats ...`, `... blackbox ...`,
+    `... top ...` and `... report ...` run with torch, jax and the JAX
+    package unimportable: they read a run's files (or its endpoints) on a
+    host whose card is wedged."""
     from ccsx_tpu_torch.utils import blackbox, trace
+    from ccsx_tpu_torch.utils.metrics import Metrics
 
     t = str(tmp_path / "t.jsonl")
     tr = trace.Tracer(t)
@@ -99,11 +104,18 @@ def test_stats_and_blackbox_run_without_torch_or_jax(tmp_path):
     box = blackbox.BlackBox(blackbox.box_path(str(tmp_path), 7))
     box.record({"ev": "begin", "tid": "T", "name": "refine_packed"})
     box.close()
+    m = str(tmp_path / "m.jsonl")
+    metrics = Metrics(stream=open(m, "w"))
+    metrics.holes_in = metrics.holes_out = 5
+    metrics.report()
+    html = str(tmp_path / "r.html")
     blocked = FORBIDDEN + ("torch",)
     blocker = _BLOCKER.replace(repr(FORBIDDEN), repr(blocked))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     for argv, want in ((["stats", t], "packed:q9"),
-                       (["blackbox", str(tmp_path)], "in-flight at death")):
+                       (["blackbox", str(tmp_path)], "in-flight at death"),
+                       (["top", "--once", "--no-color", m], "out 5"),
+                       (["report", t, m, "-o", html], "")):
         code = (blocker + "import runpy\nsys.argv = %r\n" % (
             ["ccsx_tpu_torch.cli"] + argv,)
             + "try:\n    runpy.run_module('ccsx_tpu_torch.cli', "
@@ -114,6 +126,8 @@ def test_stats_and_blackbox_run_without_torch_or_jax(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode == 0, r.stderr
         assert want in r.stdout
+    page = open(html, encoding="utf-8").read()
+    assert page.startswith("<!DOCTYPE html>") and "packed:q9" in page
 
 
 def test_crash_safety_modules_import_without_torch():
@@ -337,6 +351,23 @@ COPIES = {
     "pipeline/warmup.py": (
         {"WarmupCompiler.__init__", "WarmupCompiler._run"},
         {"WarmupCompiler.promote"}, set(), None),
+    # the hole index: the same sidecar name, version and bytes
+    "io/bamindex.py": (set(), set(), set(), None),
+    # the port's step counters are exported too (the schema guard holds
+    # every snapshot key to a declared family); a spool directory has no
+    # gateway to list its replicas; the serving plane's per-job and fleet
+    # renderers wait for that plane
+    "utils/telemetry.py": (
+        {"PROM_COUNTERS", "expand_sources"}, set(),
+        {"render_job_series", "render_fleet_series"}, None),
+    "utils/report.py": (set(), set(), set(), None),
+    # a rank runs through run.run_pipeline's setup, which owns the
+    # Metrics (no mesh precheck, no device context); no multi-process
+    # control plane
+    "parallel/distributed.py": (
+        {"run_pipeline_sharded"}, set(),
+        {"init_distributed", "from ccsx_tpu.utils.metrics import Metrics"},
+        None),
 }
 
 
