@@ -14,8 +14,9 @@ recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
 (``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``),
 ``--prep-threads`` (the batched driver's prep pool), ``--no-warmup``,
 ``--bam``, ``--telemetry-port``, the sharded-run flags (``--hosts``,
-``--host-id``, ``--merge-shards``, ``--merge-unmarked``) and
-``--make-index``.  On the card the warmup plane is off unless ``--warmup``
+``--host-id``, ``--merge-shards``, ``--merge-unmarked``),
+``--make-index`` and the fleet pull worker's ``--fleet-dir`` and
+``--fleet-worker``.  On the card the warmup plane is off unless ``--warmup``
 is given (the JAX CLI's is on unless ``--no-warmup``, and so is the
 port's on the CPU): no run measured so far had it paying for itself on
 the card (PERF.md).
@@ -25,10 +26,15 @@ the card (PERF.md).
     python -m ccsx_tpu_torch.cli blackbox <ring file or dir>...
     python -m ccsx_tpu_torch.cli top <host:port|metrics JSONL>...
     python -m ccsx_tpu_torch.cli report <trace/metrics JSONL>... [-o HTML]
+    python -m ccsx_tpu_torch.cli serve [serve options] [options]
+    python -m ccsx_tpu_torch.cli gateway --spool DIR [options]
 
-The subcommands are dispatched before the run's arguments are parsed, and
-their imports load neither torch nor jax: they read a run's files or
-endpoints on a host whose card is wedged.
+The subcommands are dispatched before the run's arguments are parsed.
+``stats``, ``blackbox``, ``top``, ``report`` and ``gateway`` load neither
+torch nor jax: they read a run's files or endpoints, or route a fleet's
+jobs, on a host whose card is wedged.  ``serve`` is the resident server
+(pipeline/serve.py): its own options, then the run's, which configure
+every job.
 
 A sharded run is one process per rank, ``--hosts N --host-id R`` each
 (several ranks may share one card), then ``--merge-shards N`` once.
@@ -172,6 +178,20 @@ top <source>...       live dashboard over telemetry endpoints (host:port)
                       and --metrics JSONL files, ranks aggregated
 report <jsonl>...     self-contained HTML report of a run's trace and
                       metrics (--fleet DIR: a spool's jobs)
+serve [opts]          resident multi-tenant server: HTTP job API (POST
+                      /jobs, GET /jobs/<id>[/output], DELETE /jobs/<id>,
+                      /healthz, /readyz, /metrics, /progress); --fleet
+                      SPOOL makes it one replica of a fleet; the run's
+                      options after its own configure every job
+gateway --spool DIR   balancer over a serve fleet's spool (no torch)
+
+Fleet pull worker (long):
+--fleet-dir <dir>     pull leased ranges of a fleet directory (its
+                      fleet.json names the input, output and ranges)
+                      through the batched driver until every range is
+                      retired
+--fleet-worker <name> the worker's name in leases and range markers
+                      [w<pid>]
 """
 
 
@@ -253,6 +273,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Build INPUT's BGZF hole index sidecar "
                         "(<INPUT>.ccsx_idx) for byte-range sharded "
                         "multi-host ingest, then exit")
+    # the fleet pull worker (pipeline/fleet.py): leased ranges of a fleet
+    # directory, each through the batched driver
+    p.add_argument("--fleet-dir", default=None, dest="fleet_dir",
+                   metavar="DIR",
+                   help="Run as a fleet pull worker against this fleet "
+                        "directory: acquire a range lease, stream it, "
+                        "retire it, pull the next until the queue drains")
+    p.add_argument("--fleet-worker", default=None, dest="fleet_worker",
+                   metavar="NAME",
+                   help="Worker name recorded in leases and range done "
+                        "markers (with --fleet-dir; defaults to w<pid>)")
     return p
 
 
@@ -388,6 +419,17 @@ def main(argv: Optional[list] = None) -> int:
         from ccsx_tpu_torch.utils import report as report_mod
 
         return report_mod.report_main(argv[1:])
+    if argv and argv[0] == "serve":
+        # the resident multi-tenant server (pipeline/serve.py)
+        from ccsx_tpu_torch.pipeline.serve import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "gateway":
+        # the serve fleet's balancer (pipeline/gateway.py): no torch
+        # import, so it keeps routing while every replica's card is wedged
+        from ccsx_tpu_torch.pipeline.gateway import gateway_main
+
+        return gateway_main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.help:
         print(USAGE, end="")
@@ -404,6 +446,30 @@ def main(argv: Optional[list] = None) -> int:
         except ValueError as e:
             print(f"Error: --inject-faults: {e}", file=sys.stderr)
             return exitcodes.RC_FATAL
+    if args.fleet_dir is not None:
+        # the fleet directory's state file is the authority on input,
+        # output and ranges; the static topology flags cannot combine
+        if (args.hosts is not None or args.host_id is not None
+                or args.merge_shards is not None or args.make_index):
+            print("Error: --fleet-dir is a pull worker; it cannot "
+                  "combine with --hosts/--host-id/--merge-shards/"
+                  "--make-index (the fleet scheduler owns those)",
+                  file=sys.stderr)
+            return exitcodes.RC_FATAL
+        if args.bam_out:
+            print("Error: --bam is not supported with --fleet-dir "
+                  "(use --fastq and convert the merged output)",
+                  file=sys.stderr)
+            return exitcodes.RC_FATAL
+        if args.batch == "off":
+            print("Error: --batch off is not supported with "
+                  "--fleet-dir", file=sys.stderr)
+            return exitcodes.RC_FATAL
+        from ccsx_tpu_torch.pipeline.fleet import run_fleet_worker
+
+        return run_fleet_worker(args.fleet_dir, cfg,
+                                worker=args.fleet_worker,
+                                inflight=args.inflight)
     if args.make_index:
         if not cfg.is_bam:
             print("Error: --make-index requires BAM input (BGZF "

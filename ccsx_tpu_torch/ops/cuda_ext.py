@@ -14,6 +14,11 @@ its path went through.  A CUDA graph replay (pipeline/graphs.py) launches
 without calling a wrapper: it adds the launches its capture recorded
 (``add``), and what a thread counts inside ``tally()`` (a capture, which
 launches nothing, or a program's priming run) goes to that tally instead.
+What ``LAUNCHES`` gets is also added to the counts of the caller's
+``scope()``, where there is one: a served job's own launches, eager refine
+dispatches and graph replays, counted across its threads (the prep pool's
+threads inherit the job's context through ``faultinject.inherit``) while
+other jobs run beside it.
 
 A kernel that fails to build or launch raises ``KernelError``, and a wrapper
 that refuses its tensors on the card raises its subclass ``RefusedInputs``:
@@ -24,6 +29,7 @@ per-request replay may swallow either.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -44,6 +50,9 @@ LAUNCHES = {"banded_global": 0, "banded_local": 0, "banded_rotband": 0,
 
 _lock = threading.Lock()
 _tls = threading.local()
+# the counts of the calling context's scope(), or None
+_scope: "contextvars.ContextVar[dict | None]" = contextvars.ContextVar(
+    "ccsx_launch_scope", default=None)
 
 
 class KernelError(RuntimeError):
@@ -66,6 +75,9 @@ def count(name: str) -> None:
         return
     with _lock:
         LAUNCHES[name] += 1
+        sc = _scope.get()
+        if sc is not None:
+            sc["launches"][name] += 1
 
 
 @contextlib.contextmanager
@@ -83,8 +95,35 @@ def tally():
 def add(counts: dict) -> None:
     """Add launches made without a wrapper call (a graph replay's)."""
     with _lock:
+        sc = _scope.get()
         for name, n in counts.items():
             LAUNCHES[name] += n
+            if sc is not None:
+                sc["launches"][name] += n
+
+
+@contextlib.contextmanager
+def scope():
+    """For the duration, also count the calling context's launches (this
+    thread's, and those of threads started with its context) into a fresh
+    ``{"launches": {kernel: n}, "eager_dispatches": n, "graph_replays": n}``,
+    which is yielded; the refine programs (pipeline/graphs.py) add their
+    dispatches with ``scoped``."""
+    counts = {"launches": dict.fromkeys(LAUNCHES, 0), "eager_dispatches": 0,
+              "graph_replays": 0}
+    token = _scope.set(counts)
+    try:
+        yield counts
+    finally:
+        _scope.reset(token)
+
+
+def scoped(key: str) -> None:
+    """Add one to ``key`` of the calling context's scope, if any."""
+    sc = _scope.get()
+    if sc is not None:
+        with _lock:
+            sc[key] += 1
 
 
 def reset_counts() -> None:

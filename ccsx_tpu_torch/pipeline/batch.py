@@ -1604,7 +1604,8 @@ def _grow_window(window: int, cap: int, growth: int) -> int:
 
 def drive_batched(stream, writer, cfg: CcsConfig, device,
                   metrics: RunMetrics, journal: Journal,
-                  inflight: Optional[int] = None) -> None:
+                  inflight: Optional[int] = None, admission=None,
+                  warm=None) -> None:
     """The batched scheduler over an open ZMW stream and writer.
 
     Admits holes into a window, runs one pair sweep and one refine sweep
@@ -1633,6 +1634,14 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     gets each record with its hole's index in ``stream``; others get
     ``put``.
 
+    Under the serving plane (pipeline/serve.py) a job passes the server's
+    ``warm`` (a WarmupCompiler that lives as long as the server: used, not
+    closed here) and its ``admission`` handle on the server's fair window
+    (serve.JobAdmission): a slot is acquired for each admitted hole and
+    released when the hole finishes computing (before emission), so jobs
+    running at once split the device window instead of stacking windows;
+    whatever the exit path, the job's slots are given back at the end.
+
     Counters, stage timers and progress events go into ``metrics``; the
     spans into the installed tracer (the caller's, utils/trace.py).  The
     first ``journal.holes_done`` holes were written by an earlier run: they
@@ -1654,9 +1663,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     n_prep = resolve_prep_threads(cfg)
     # the warmup plane: as soon as prep yields a hole's first
     # RefineRequest, its group's canonical programs are captured on this
-    # background thread, concurrently with ingest/prep
-    warm = None
-    if cfg.warmup_compile:
+    # background thread, concurrently with ingest/prep (a server's plane
+    # outlives the job: never closed here)
+    own_warm = warm is None
+    if warm is None and cfg.warmup_compile:
         from ccsx_tpu_torch.pipeline.warmup import WarmupCompiler
 
         warm = WarmupCompiler()
@@ -1718,9 +1728,13 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
             if pool is not None:
                 pool.release()  # free one slot of ingest-ahead budget
 
+    adm = admission
+
     def admit(h):
         if h.done:
             finished[h.idx] = h
+            if adm is not None:
+                adm.release()  # never computed: free the slot at once
         else:
             warm_hole(h)
             active.append(h)
@@ -1740,20 +1754,30 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 # never blocking here: with device work pending, the
                 # sweep must run while prep keeps working in background
                 while len(active) < window:
+                    if adm is not None and not adm.try_acquire():
+                        break  # at fair share; sweep what we hold
                     h = pool.poll()
                     if h is None:
+                        if adm is not None:
+                            adm.release()  # nothing arrived for it
                         break
                     admit(h)
             else:
                 # inline prep (--prep-threads 0): admit up to the window
+                denied = False
                 while (not exhausted and len(active) < window
                        and next_idx - next_emit < 4 * cap):
+                    if adm is not None and not adm.try_acquire():
+                        denied = True
+                        break  # at fair share; sweep what we hold
                     try:
                         with metrics.timer("ingest"), \
                                 trace.span("ingest_hole", cat="ingest"):
                             z = next(stream)
                             faultinject.fire("ingest")
                     except StopIteration:
+                        if adm is not None:
+                            adm.release()
                         exhausted = True
                         break
                     metrics.holes_in += 1
@@ -1776,6 +1800,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 if pool is None:
                     if exhausted:
                         break
+                    if denied:
+                        # no slot and nothing in flight: wait for a
+                        # sibling job's release instead of spinning
+                        adm.wait(0.2)
                     continue
                 if pool.drained():
                     break
@@ -1785,6 +1813,16 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 # sweep into near-empty slabs); the moment prep pauses
                 # with work in hand, or the window fills, sweep it
                 while len(active) < window and not pool.drained():
+                    if adm is not None and not adm.try_acquire():
+                        # at fair share while another job wants the
+                        # window: wait on the admission condition (a
+                        # release anywhere re-checks), not on the pool
+                        adm.wait(0.05 if active else 0.2)
+                        emit_ready()
+                        if active:
+                            break
+                        metrics.heartbeat()
+                        continue
                     # only the wait itself books as blocked — emission
                     # has its own stage
                     with metrics.timer("prep_blocked"):
@@ -1795,6 +1833,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                     # bound live-locks against the pool
                     emit_ready()
                     if h is None:
+                        if adm is not None:
+                            adm.release()
                         if active:
                             break
                         metrics.heartbeat()
@@ -1831,6 +1871,11 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
             for h in active:
                 if h.done:
                     finished[h.idx] = h
+                    if adm is not None:
+                        # finished computing: free the slot before
+                        # emission (which can lag on an out-of-order tail)
+                        # so a sibling job's denied admission unblocks now
+                        adm.release()
                 else:
                     # a sweep can grow a hole's draft into a fresh (qmax,
                     # tmax) group: predict its next window's shapes
@@ -1843,6 +1888,11 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
             # interval-driven progress events while nothing has retired yet
             metrics.heartbeat()
     finally:
+        # give back this job's admission slots whatever the exit path: a
+        # failed job must not strand capacity the fair window still counts
+        # against its share
+        if adm is not None:
+            adm.reset()
         # stop the prep plane before the caller closes the tracer (its
         # workers and pump write prep spans and metrics): an error path
         # may leave holes in prep — dropped, the caller's rc says why
@@ -1851,5 +1901,5 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         # then the warmup thread (queued captures dropped, a running one
         # finishes), before the caller closes the tracer: no warmup span
         # outlives the trace file
-        if warm is not None:
+        if warm is not None and own_warm:
             warm.close()

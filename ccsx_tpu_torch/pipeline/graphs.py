@@ -51,7 +51,12 @@ rule, so the CPU tests hold the protocol.
 Programs live as long as the process, as jit's executables do, until
 ``clear()``, which the driver calls after a device out-of-memory error
 before it splits the slab: every program, the shared pool and the
-allocator's cached memory go.  A key holds everything the step's closure
+allocator's cached memory go.  Under the serving plane one job's OOM clears
+every job's programs, so ``clear`` takes the replay lock and waits for the
+card before it drops anything: no replay of another thread's is between
+its replay and its clone then, and none is still running on the card when
+its graph goes.  A program a thread already holds stays whole until that
+thread lets go of it.  A key holds everything the step's closure
 depends on (the shape, the arm, the run's scores and constants, the device
 and the step's factory), so runs of other configurations never share a
 program.
@@ -61,7 +66,8 @@ program keeps the launches its capture recorded and adds them to
 ``cuda_ext.LAUNCHES`` at every ``run``.  The priming run and the warm
 replays are build work: their launches are kept apart, in ``stats()``.  An
 eager dispatch's launches count as they happen, and ``stats()`` keeps a
-copy.
+copy.  ``stats()`` is for the process; a served job's own eager dispatches
+and replays go to its ``cuda_ext.scope()`` as well.
 
 A build, capture or replay that raises raises ``cuda_ext.KernelError`` (the
 run ends; the step is never rerun eagerly), except an out-of-memory error,
@@ -89,7 +95,8 @@ from ccsx_tpu_torch.ops import cuda_ext
 CAPTURE_AT = 2
 
 _programs: Dict[tuple, "Program"] = {}
-_eager: Dict[tuple, list] = {}    # key -> [its step, eager dispatches]
+# key -> [its step, dispatches taken, eager dispatches completed]
+_eager: Dict[tuple, list] = {}
 _pools: Dict[int, tuple] = {}     # card index -> its programs' shared pool
 _streams: Dict[int, "torch.cuda.Stream"] = {}   # card index -> capture stream
 _lock = threading.Lock()          # the cache and the stats
@@ -210,6 +217,8 @@ class Program:
                     f"{type(e).__name__}: {e}") from e
             if not warm:
                 cuda_ext.add(self.launches)
+        if not warm:
+            cuda_ext.scoped("graph_replays")
         with _lock:
             _stat(self.key, self)["warm_replays" if warm else "replays"] += 1
         return out
@@ -280,11 +289,17 @@ def dispatch(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
         if seen is None:
             step = make_step()
             with _lock:
-                seen = _eager.setdefault(key, [step, 0])
-        if seen[1] + 1 < CAPTURE_AT:
+                seen = _eager.setdefault(key, [step, 0, 0])
+        with _lock:
+            # this dispatch's ordinal, taken before it runs: two threads
+            # dispatching one shape at once (two served jobs) never both
+            # run eagerly where only one may
+            n = seen[1]
+            seen[1] += 1
+        if n + 1 < CAPTURE_AT:
             return _run_eager(key, seen, device, host)
         # no priming where an eager run of this step came first
-        p = program(key, lambda: seen[0], specs, device, prime=not seen[1])
+        p = program(key, lambda: seen[0], specs, device, prime=not seen[2])
     return p.run(*host)
 
 
@@ -292,9 +307,11 @@ def _run_eager(key, seen: list, device, host) -> torch.Tensor:
     """One eager dispatch: its launches count (in LAUNCHES and the key's
     stats) even when the step raises part way."""
     dev = torch.device(device)
+    ok = False
     try:
         with cuda_ext.tally() as t:
             out = seen[0](*(h.to(dev, non_blocking=True) for h in host))
+        ok = True
     finally:
         cuda_ext.add(t)
         with _lock:
@@ -303,9 +320,12 @@ def _run_eager(key, seen: list, device, host) -> torch.Tensor:
                 if n:
                     st["eager_launches"][name] = \
                         st["eager_launches"].get(name, 0) + n
+            if not ok:
+                seen[1] -= 1     # a failed run leaves its ordinal free
     with _lock:
-        seen[1] += 1
+        seen[2] += 1
         st["eager"] += 1
+    cuda_ext.scoped("eager_dispatches")
     return out
 
 
@@ -341,14 +361,20 @@ def reset_stats() -> None:
 def clear() -> None:
     """Drop every program, the eager counts and the shared pools, and hand
     the card's cached memory back (a program's graph and its share of the
-    pool go with the last reference to it)."""
-    with _build_lock, _lock:
-        _programs.clear()
-        _eager.clear()
-        _pools.clear()
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+    pool go with the last reference to it).  No build runs meanwhile, and no
+    replay: every replay already made has run on the card, clone included,
+    before anything is dropped."""
+    cuda = torch.cuda.is_initialized()
+    with _build_lock:
+        with _replay_lock, _lock:
+            if cuda:
+                torch.cuda.synchronize()
+            _programs.clear()
+            _eager.clear()
+            _pools.clear()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
 
 
 def pool_bytes() -> int:
@@ -360,3 +386,16 @@ def pool_bytes() -> int:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
+def totals() -> dict:
+    """``stats()`` summed over its keys — builds, eager dispatches,
+    replays, warm replays and build seconds — with the shared pools' bytes
+    on the card: the serving plane's cumulative counts
+    (pipeline/serve.ServeMetrics)."""
+    st = stats()
+    out = {k: sum(v[k] for v in st.values())
+           for k in ("builds", "eager", "replays", "warm_replays",
+                     "build_s")}
+    out["pool_bytes"] = pool_bytes() if torch.cuda.is_initialized() else 0
+    return out

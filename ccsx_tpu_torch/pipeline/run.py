@@ -142,6 +142,53 @@ def guarded_stream(stream, cfg: CcsConfig, metrics, guard=None):
         yield z
 
 
+def count_raw_holes(in_path: str, cfg: CcsConfig) -> int:
+    """RAW hole count of the input — the fleet scheduler's range-table
+    denominator (pipeline/fleet.py).  BAM inputs use (or build) the
+    BGZF hole index sidecar; FASTA/Q inputs take one name-only counting
+    pass using the same consecutive-(movie,hole) keying as the sharded
+    BAM indexer, so range-table ordinals always line up with what
+    ``slice_raw_holes`` streams."""
+    from ccsx_tpu_torch.io import bamindex
+
+    if cfg.is_bam:
+        idx = bamindex.load_index(in_path) or bamindex.build_index(
+            in_path,
+            max_record_bytes=getattr(cfg, "max_record_bytes", 0))
+        return idx["n_holes"]
+    n = 0
+    prev = None
+    with open(in_path, "rb") as f:
+        for rec in fastx.read_fastx(f):
+            key = bamindex._hole_key(rec.name)
+            if key != prev:
+                n += 1
+                prev = key
+    return n
+
+
+def slice_raw_holes(records, lo: int, hi: int):
+    """Pass through only the records of raw holes [lo, hi) — the
+    FASTA/Q twin of bamindex.read_hole_range (which seeks; plain text
+    cannot, so the lead-in is parsed and dropped).  Stops at hole hi,
+    so a front range never pays for the file's tail."""
+    from ccsx_tpu_torch.io import bamindex
+
+    if lo >= hi:
+        return
+    seen = -1
+    prev = None
+    for rec in records:
+        key = bamindex._hole_key(rec.name)
+        if key != prev:
+            seen += 1
+            prev = key
+            if seen >= hi:
+                return
+        if seen >= lo:
+            yield rec
+
+
 def holes_total_hint(in_path: str, cfg: CcsConfig):
     """RAW hole count of the input when cheaply knowable (the BGZF hole
     index sidecar, ``ccsx-tpu-torch --make-index``), else None: the
@@ -335,7 +382,8 @@ def open_run_io(in_path: str, out_path: str, cfg: CcsConfig, metrics,
 
 def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
                  batch: str = "auto", inflight: int | None = None,
-                 journal_path: str | None = None, open_io=None) -> int:
+                 journal_path: str | None = None, open_io=None,
+                 metrics: RunMetrics | None = None, shared=None) -> int:
     """One run end to end.  ``batch``: 'on' runs the batched packed driver
     (pipeline/batch.py), 'off' the per-hole driver, 'auto' the batched one
     on the card and the per-hole one on the CPU.  ``inflight`` pins the
@@ -344,7 +392,20 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     the output continues from its journaled size.  ``open_io(metrics)``
     opens the run's (stream, journal, writer), or returns None to end it
     at rc 1; the default is ``open_run_io``, and a sharded rank
-    (parallel/distributed.py) passes its own.
+    (parallel/distributed.py) and a fleet range (pipeline/fleet.py) pass
+    their own.
+
+    ``metrics``/``shared``: the serving plane (pipeline/serve.py) runs
+    each job through this entry on a job thread, with the job's own
+    RunMetrics and the server's runtime, duck-typed as in the JAX
+    package's batched driver: ``guard`` (a utils/drain.FlagGuard the
+    server raises on cancel, deadline or drain) replaces the signal
+    handlers, which belong to the server's main thread; ``admission`` (a
+    handle on the server's fair admission window) and ``warm`` (the
+    server's warmup plane, or None) go to drive_batched.  With
+    ``shared`` set the run installs no guard, no tracer and no telemetry
+    (the server owns them), and a device fault is also left in
+    ``shared.fault`` for the server, which stops on it.
 
     The run owns the Metrics (``--metrics``: JSONL events, the final one
     at the end whatever the exit path), the Tracer (``--trace``,
@@ -379,7 +440,9 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
                   file=sys.stderr)
             return exitcodes.RC_FATAL
     # constructed before the stream, which books its filtered holes here
-    metrics = RunMetrics(verbose=cfg.verbose, stream=cfg.metrics_stream())
+    if metrics is None:
+        metrics = RunMetrics(verbose=cfg.verbose,
+                             stream=cfg.metrics_stream())
     if open_io is None:
         def open_io(m):
             return open_run_io(in_path, out_path, cfg, m, journal_path)
@@ -395,8 +458,9 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     rc = exitcodes.RC_OK
     # graceful drain (utils/drain.py): SIGTERM/SIGINT stop admission;
     # in-flight holes finish, writer and journal settle, rc 75 resumable.
-    # Installed immediately before the try whose finally restores it
-    guard = DrainGuard.install()
+    # Installed immediately before the try whose finally restores it; a
+    # served job drains through its server's guard instead
+    guard = getattr(shared, "guard", None) or DrainGuard.install()
     stream = guarded_stream(stream, cfg, metrics, guard)
     # the flight recorder: constructed inside the try, so neither its
     # watchdog thread nor its file can leak, and an unwritable --trace
@@ -404,24 +468,27 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     tracer = None
     telem = None
     try:
-        try:
-            tracer = trace.Tracer(cfg.trace_path,
-                                  stall_timeout=cfg.stall_timeout_s,
-                                  metrics=metrics)
-        except OSError as e:
-            print(f"Cannot open trace file for write! ({e})",
-                  file=sys.stderr)
-            return exitcodes.RC_FATAL
-        trace.install(tracer)
-        if cfg.telemetry_port:
-            from ccsx_tpu_torch.utils import telemetry
+        if shared is None:
+            try:
+                tracer = trace.Tracer(cfg.trace_path,
+                                      stall_timeout=cfg.stall_timeout_s,
+                                      metrics=metrics)
+            except OSError as e:
+                print(f"Cannot open trace file for write! ({e})",
+                      file=sys.stderr)
+                return exitcodes.RC_FATAL
+            trace.install(tracer)
+            if cfg.telemetry_port:
+                from ccsx_tpu_torch.utils import telemetry
 
-            telem = telemetry.start(metrics, cfg.telemetry_port)
+                telem = telemetry.start(metrics, cfg.telemetry_port)
         if batched:
             from ccsx_tpu_torch.pipeline import batch as batch_mod
 
-            batch_mod.drive_batched(stream, writer, cfg, device, metrics,
-                                    journal, inflight)
+            batch_mod.drive_batched(
+                stream, writer, cfg, device, metrics, journal, inflight,
+                admission=getattr(shared, "admission", None),
+                warm=getattr(shared, "warm", None))
         else:
             drive_per_hole(stream, writer, cfg, device, metrics, journal)
         # a fraction-form --max-failed-holes settles at the end, when the
@@ -436,6 +503,8 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     except cuda_ext.KernelError as e:
         print(f"Error: device failure, run aborted: {e}", file=sys.stderr)
         rc = exitcodes.RC_FATAL
+        if shared is not None:
+            shared.fault = e
     except (bam_mod.BamError, zmw.InvalidZmwName, ValueError,
             # damaged gzip/BGZF under the fail-fast Python readers (the
             # native reader classifies these as NativeStreamError, a
@@ -458,8 +527,11 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         # made the records durable
         journal.close()
         # the watchdog stops and the trace is exported before the final
-        # metrics event, so a degraded mark set mid-run is in it
-        trace.uninstall()
+        # metrics event, so a degraded mark set mid-run is in it.  A served
+        # job leaves the server's tracer installed: its siblings record
+        # into it
+        if shared is None:
+            trace.uninstall()
         if tracer is not None:
             tracer.close()
         # endpoints down before the final event: a scrape never sees a

@@ -1,8 +1,6 @@
 """Live telemetry plane: /metrics, /healthz, /progress and
 `ccsx-tpu-torch top` (a copy of the JAX package's utils/telemetry.py; the
-port's step counters join ``PROM_COUNTERS``, ``expand_sources`` has no
-serve-fleet gateway to ask, and the serving plane's per-job and fleet
-renderers are not here yet).
+port's step counters join ``PROM_COUNTERS``).
 
 * **TelemetryServer** (``--telemetry-port``, 0 = off): a daemon thread
   serving, straight off the run's live ``Metrics`` object,
@@ -347,6 +345,62 @@ def health_payload(snap: dict) -> dict:
     }
 
 
+def render_job_series(jobs: dict) -> str:
+    """Per-job labeled Prometheus series for the serving plane:
+    ``jobs`` maps job id -> that job's ``Metrics.snapshot()``.  Every
+    family is declared once (TYPE line) then sampled per job — the
+    multi-tenant view of the same counters render_prometheus exports
+    for a single run."""
+    lines: List[str] = []
+    typed: set = set()
+
+    def sample(name, value, typ, labels):
+        v = _num(value)
+        if v is None:
+            return
+        if name not in typed:
+            typed.add(name)
+            lines.append(f"# TYPE ccsx_job_{name} {typ}")
+        lines.append(f"ccsx_job_{name}{labels} {v}")
+
+    for jid, snap in sorted(jobs.items()):
+        labels = f'{{job="{_prom_escape(jid)}"}}'
+        for key in JOB_PROM_COUNTERS:
+            sample(key, (snap or {}).get(key), "counter", labels)
+        for key in JOB_PROM_GAUGES:
+            sample(key, (snap or {}).get(key), "gauge", labels)
+        if (snap or {}).get("degraded"):
+            sample("degraded", 1, "gauge", labels)
+    return ("\n".join(lines) + "\n") if lines else ""
+
+
+def render_fleet_series(summary: dict) -> str:
+    """The serve-fleet autoscale gauges (``summary`` is pipeline/
+    gateway.fleet_summary's output): fleet-wide scalars from
+    FLEET_SERVE_GAUGES, then the per-replica FLEET_REPLICA_GAUGES
+    labeled ``{replica="..."}`` — the signals an autoscaler sizes the
+    replica count by."""
+    lines: List[str] = []
+    for key in FLEET_SERVE_GAUGES:
+        v = _num(summary.get(key))
+        if v is None:
+            continue
+        lines.append(f"# TYPE ccsx_{key} gauge")
+        lines.append(f"ccsx_{key} {v}")
+    typed: set = set()
+    for name, per in sorted((summary.get("replicas") or {}).items()):
+        labels = f'{{replica="{_prom_escape(name)}"}}'
+        for key in FLEET_REPLICA_GAUGES:
+            v = _num((per or {}).get(key))
+            if v is None:
+                continue
+            if key not in typed:
+                typed.add(key)
+                lines.append(f"# TYPE ccsx_{key} gauge")
+            lines.append(f"ccsx_{key}{labels} {v}")
+    return ("\n".join(lines) + "\n") if lines else ""
+
+
 # ---- the endpoint server --------------------------------------------------
 
 class _Handler(BaseHTTPRequestHandler):
@@ -516,19 +570,20 @@ def tail_metrics_jsonl(path: str, max_bytes: int = 262144):
 
 
 def expand_sources(sources: List[str]) -> List[str]:
-    """A DIRECTORY source is a serve-fleet spool, whose replica
-    endpoints the serving plane's gateway lists.  This package has no
-    gateway yet: a spool contributes the sentinel source that renders
-    unreachable (an empty fleet must look DOWN, not like an empty
-    argument list), and stderr says why."""
+    """A DIRECTORY source is a serve-fleet spool: expand it to the
+    replica endpoints advertised in its slot leases (pipeline/
+    gateway.replica_endpoints), re-discovered on every refresh so a
+    replica join/death shows up within one frame.  A spool with no
+    live replicas contributes a sentinel source that renders
+    unreachable — an empty fleet must look DOWN, not like an empty
+    argument list."""
     out: List[str] = []
     for src in sources:
         if os.path.isdir(src):
-            print(f"[ccsx-tpu-torch] top: {src} is a serve-fleet spool; "
-                  "listing its replicas needs the serving plane's gateway "
-                  "(pipeline/gateway.replica_endpoints), which this "
-                  "package does not have", file=sys.stderr)
-            out.append(os.path.join(src, "<no-replicas>"))
+            from ccsx_tpu_torch.pipeline.gateway import replica_endpoints
+
+            eps = replica_endpoints(src)
+            out.extend(eps if eps else [os.path.join(src, "<no-replicas>")])
         else:
             out.append(src)
     return out

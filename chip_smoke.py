@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
                           [--kernels-only | --host-planes-only |
-                           --warmup-only [--cold-holes N] | --shards-only]
+                           --warmup-only [--cold-holes N] | --shards-only |
+                           --serve-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -153,7 +154,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    corpus of 2048 holes (``big_corpus``) in one cold process against two
    cold ranks in range mode, whose merge must be its bytes.
    ``--shards-only`` runs this phase alone after one scale run and one
-   traced run.
+   traced run;
+12. the resident server and its replica fleet, each a ``python -m
+   ccsx_tpu_torch.cli`` process on the card (``serve`` with ``-M
+   4000000``, which both corpora pass; every SCALE64 job under inline prep
+   and a pinned window of 16 holes, so its slabs depend on its input
+   alone): the server's start-to-ready seconds; a warm wave of two SCALE64
+   jobs at once (each to the pinned md5, each job's own launches — counted
+   for it alone — through the global fill, the local fill and the walk),
+   then two long-molecule jobs at once (their md5); a steady wave of four
+   SCALE64 jobs and one long-molecule job, after which ``/progress`` shows
+   no new refine-program build, and in which every SCALE64 job dispatches
+   nothing eagerly (its graph replays equal its slabs); a ``device_oom@2``
+   job beside a clean one (both to the md5, ``oom_resplits`` >= 1 in the
+   faulted job only); a job cancelled mid-flight (a ``stall``), rc 75; a
+   SIGTERM with a job in flight (rc 75, the job ``interrupted`` in
+   ``state.json``) and the same command restarted, which finishes it to the
+   md5; then ``gateway`` and two ``serve --fleet`` replicas under
+   ``--banded-impl rotband``, four SCALE64 jobs through the gateway, and
+   the replica holding the first (stalled) job SIGKILLed mid-job: its lease
+   expires to the survivor, every job ends at the md5 with exactly one
+   done marker, and every process and job read launched the rotating-band
+   fill and never the band-local one.  Submit-to-done seconds, each job's
+   ``elapsed_s``, start-to-ready seconds and the pool's bytes are reported
+   beside phase 10's cold CLI processes, not gated.  ``--serve-only`` runs
+   this phase alone after one scale run.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -2788,6 +2813,477 @@ def phase_shards(device, traced, big_holes=2048):
     return rec
 
 
+# phase 12: the resident server and its replica fleet, each a real process
+# on the card.  The server's own filters pass both corpora (the long
+# molecules' subreads total more than -M's default 500,000 bases; SCALE64's
+# at most 65,487, so its bytes do not change)
+SERVE_FLAGS = ["-M", "4000000"]
+# a SCALE64 job: inline prep and a pinned window of 16 holes, so each job's
+# slabs are a function of its input alone (two jobs at once hold 32 of the
+# fair window's 64 slots: no admission is ever denied)
+SERVE_JOB = {"prep_threads": 0, "inflight": 16}
+# the OOM pair: the CLI's adaptive window under inline prep, so the
+# faulted job's first sweep is phase 8's (where device_oom@2 meets a
+# group of more than one request and resplits it)
+SERVE_OOM_JOB = {"prep_threads": 0}
+# the injected stall of the cancel and drain jobs (server environment)
+SERVE_STALL_S = "4"
+# the fleet's lease timeout: a killed replica's job goes to the survivor
+# at most this long after its last renewal
+FLEET_LEASE_S = 8
+SERVE_KERNELS = ("banded_global", "banded_local", "traceback_walk")
+# the fleet's replicas run --banded-impl rotband: its fill and the walk,
+# never the band-local global fill
+FLEET_KERNELS = ("banded_rotband", "traceback_walk")
+
+
+def http_json(method, url, body=None, timeout=30.0):
+    """(status, parsed JSON body or raw bytes) of one request; HTTP errors
+    are answers, not exceptions."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw
+
+
+class ServeProc:
+    """One ``python -m ccsx_tpu_torch.cli <argv>`` process (serve or
+    gateway), its stderr in a log file; stopped (SIGKILL) by ``close`` if
+    still running."""
+
+    def __init__(self, argv, log, env_extra=None):
+        env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+        env.pop("CCSX_FAULTS", None)
+        self.log = log
+        self.base = None
+        self._f = open(log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ccsx_tpu_torch.cli", *argv], cwd=HERE,
+            env=env, stdout=self._f, stderr=subprocess.STDOUT)
+
+    def bound(self):
+        """The URL the process printed it serves on, or None yet (a port
+        that is taken — a stopped server's, in TIME_WAIT — auto-bumps)."""
+        import re
+
+        self._f.flush()
+        m = re.findall(r"(?:serve|gateway): http://[^:]+:(\d+) ",
+                       open(self.log).read())
+        return f"http://127.0.0.1:{m[-1]}" if m else None
+
+    def wait_ready(self, timeout=240.0):
+        """Seconds from the process's start to its first /readyz 200; the
+        URL it serves on is left in ``base``."""
+        while time.perf_counter() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.log}: exited "
+                                     f"{self.proc.returncode}:\n"
+                                     f"{self.tail()}")
+            self.base = self.bound()
+            try:
+                code = self.base and http_json(
+                    "GET", self.base + "/readyz", timeout=2.0)[0]
+                if code == 200:
+                    return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"{self.log}: not ready in {timeout}s\n"
+                             f"{self.tail()}")
+
+    def stop(self, sig, timeout=180.0):
+        import signal
+
+        self.proc.send_signal(getattr(signal, sig))
+        rc = self.proc.wait(timeout)
+        self._f.close()
+        return rc
+
+    def tail(self, n=4000):
+        self._f.flush()
+        return open(self.log).read()[-n:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        if not self._f.closed:
+            self._f.close()
+
+
+def serve_wave(base, payloads, timeout=300.0):
+    """Submit every job at once, then wait for each: per job its submit to
+    done seconds (polled every 20 ms), its final state and counters (GET
+    /jobs/<id>), its output's md5."""
+    ids, t_sub = [], {}
+    for p in payloads:
+        code, body = http_json("POST", base + "/jobs", p)
+        if code != 201:
+            raise AssertionError(f"submit {p}: {code} {body}")
+        ids.append(body["id"])
+        t_sub[body["id"]] = time.perf_counter()
+    out, left = {}, set(ids)
+    t0 = time.perf_counter()
+    while left and time.perf_counter() - t0 < timeout:
+        for jid in sorted(left):
+            code, info = http_json("GET", f"{base}/jobs/{jid}")
+            if code == 200 and info.get("state") in (
+                    "done", "failed", "cancelled", "interrupted"):
+                info["submit_to_done_s"] = time.perf_counter() - t_sub[jid]
+                out[jid] = info
+                left.discard(jid)
+        time.sleep(0.02)
+    if left:
+        raise AssertionError(f"jobs {sorted(left)} not finished in "
+                             f"{timeout}s")
+    for jid in ids:
+        if out[jid]["state"] == "done":
+            code, data = http_json("GET", f"{base}/jobs/{jid}/output")
+            out[jid]["md5"] = _md5(data if isinstance(data, bytes)
+                                   else json.dumps(data).encode())
+    return [out[jid] for jid in ids]
+
+
+def job_record(info):
+    """What phase 12 keeps of one served job."""
+    m = info.get("metrics") or {}
+    return {"id": info["id"], "state": info["state"], "rc": info["rc"],
+            "md5": info.get("md5"),
+            "submit_to_done_s": info.get("submit_to_done_s"),
+            "elapsed_s": m.get("elapsed_s"), "slabs": m.get("slabs"),
+            "eager": m.get("eager_dispatches"),
+            "replays": m.get("graph_replays"),
+            "oom_resplits": m.get("oom_resplits"),
+            "failed_steps": m.get("failed_steps"),
+            "launches": m.get("launches"), "replica": info.get("replica")}
+
+
+def check_jobs(tag, recs, md5, steady=False):
+    """Each job done to ``md5``, its own launches through SERVE_KERNELS and
+    never the rotating-band fill, no step failed over; ``steady``: no eager
+    dispatch, every slab a graph replay."""
+    kernels, absent = SERVE_KERNELS, ("banded_rotband",)
+    bad = []
+    for r in recs:
+        n = r["launches"] or {}
+        if r["state"] != "done" or r["md5"] != md5:
+            bad.append(f"{r['id']}: {r['state']} md5 {r['md5']}")
+        elif any(n.get(k, 0) <= 0 for k in kernels) or any(
+                n.get(k, 0) for k in absent):
+            bad.append(f"{r['id']}: launches {n}")
+        elif r["failed_steps"]:
+            bad.append(f"{r['id']}: failed_steps {r['failed_steps']}")
+        elif steady and (r["eager"] != 0 or r["replays"] != r["slabs"]):
+            bad.append(f"{r['id']}: eager {r['eager']}, replays "
+                       f"{r['replays']}, slabs {r['slabs']}")
+    print(f"[chip_smoke] phase 12 {tag}: " + json.dumps(recs), flush=True)
+    if bad:
+        raise AssertionError(f"phase 12 {tag}: {bad}")
+
+
+def check_oom(oom):
+    """The device_oom@2 job and its clean sibling: both to the md5, the
+    OOM resplit in the faulted job only."""
+    check_jobs("device_oom@2 beside a clean job", oom, SCALE64_MD5)
+    if oom[0]["oom_resplits"] < 1 or oom[1]["oom_resplits"]:
+        raise AssertionError(f"phase 12 oom_resplits: {oom}")
+
+
+def wait_state(base, jid, states, timeout=120.0):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        code, info = http_json("GET", f"{base}/jobs/{jid}")
+        if code == 200 and info.get("state") in states:
+            return info
+        time.sleep(0.02)
+    raise AssertionError(f"job {jid} never reached {states}")
+
+
+def phase_serve(device, cold=None):
+    """Phase 12, the resident server and its replica fleet on the card, each
+    a ``python -m ccsx_tpu_torch.cli`` process: a solo ``serve`` (its
+    start-to-ready seconds); a warm wave (two SCALE64 jobs at once, each to
+    the pinned md5 with its own launches of the default arm's kernels; then
+    two long-molecule jobs at once to theirs); a steady wave (four SCALE64
+    jobs and one long-molecule job) that builds no refine program on
+    ``/progress`` and whose SCALE64 jobs dispatch nothing eagerly (replays
+    = slabs); a ``device_oom@2`` job beside a clean one (both to the md5,
+    ``oom_resplits`` >= 1 in the faulted job only); a cancel mid-job (a
+    ``stall``); SIGTERM with a job in flight (rc 75) and a restart of the
+    same command that finishes it to the md5; then two ``serve --fleet``
+    replicas under ``--banded-impl rotband`` behind ``gateway``, four
+    SCALE64 jobs through the gateway and the replica holding a running job
+    SIGKILLed: every job to the md5 with the rotating-band fill launched
+    and the band-local one not, exactly one done marker a job.  ``cold``:
+    phase 10's cold default CLI process medians, for the report."""
+    from ccsx_tpu_torch.utils import synth
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "serve")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    bam = os.path.join(WORK, "in64.bam")
+    if not os.path.exists(bam):
+        synth.make_big_bam(bam, SCALE64_HOLES, np.random.default_rng(42))
+    long_fa = os.path.join(WORK, "long.fa")
+    if not os.path.exists(long_fa):
+        synth.make_long_fasta(long_fa, 4, 50000, 8, 11)
+    s64 = dict(SERVE_JOB, input=bam)
+    lng = dict(SERVE_JOB, input=long_fa, format="fasta")
+    rec = {"start_to_ready_s": []}
+    procs = []
+    try:
+        argv = ["serve", "--port", str(free_ports(1)), "--spool",
+                os.path.join(d, "spool"), "--max-active", "2", "--device",
+                device, *SERVE_FLAGS]
+        env = {"CCSX_FAULT_STALL_S": SERVE_STALL_S}
+        srv = ServeProc(argv, os.path.join(d, "serve.log"), env)
+        procs.append(srv)
+        rec["start_to_ready_s"].append(srv.wait_ready())
+        base = srv.base
+
+        warm = [job_record(i) for i in serve_wave(base, [s64, s64])]
+        check_jobs("warm wave, SCALE64", warm, SCALE64_MD5)
+        warm_long = [job_record(i) for i in serve_wave(base, [lng, lng])]
+        check_jobs("warm wave, long molecules", warm_long, LONG_MD5)
+        _, prog = http_json("GET", base + "/progress")
+        after_warm = prog["programs"]
+        steady = [job_record(i) for i in serve_wave(base, [s64] * 4 + [lng])]
+        check_jobs("steady wave, SCALE64", steady[:4], SCALE64_MD5,
+                   steady=True)
+        check_jobs("steady wave, long molecules", steady[4:], LONG_MD5)
+        _, prog = http_json("GET", base + "/progress")
+        after_steady = prog["programs"]
+        rec.update(warm=warm, warm_long=warm_long, steady=steady,
+                   programs={"warm": after_warm, "steady": after_steady})
+        print(f"[chip_smoke] phase 12 programs after the warm wave "
+              f"{after_warm}, after the steady wave {after_steady}",
+              flush=True)
+        if after_steady["builds"] != after_warm["builds"]:
+            raise AssertionError("phase 12: the steady wave built "
+                                 f"{after_steady['builds'] - after_warm['builds']}"
+                                 " refine programs")
+
+        pair = dict(SERVE_OOM_JOB, input=bam)
+        rec["oom"] = [job_record(i) for i in serve_wave(
+            base, [dict(pair, faults="device_oom@2"), pair])]
+        check_oom(rec["oom"])
+
+        code, body = http_json("POST", base + "/jobs",
+                               dict(s64, faults="stall@1"))
+        jid = body["id"]
+        wait_state(base, jid, ("running",))
+        time.sleep(0.5)
+        code, body = http_json("DELETE", f"{base}/jobs/{jid}")
+        info = wait_state(base, jid, ("cancelled", "done", "failed"))
+        rec["cancel"] = {"delete": code, "state": info["state"],
+                         "rc": info["rc"]}
+        print(f"[chip_smoke] phase 12 cancel mid-job: {rec['cancel']}",
+              flush=True)
+        if code != 200 or info["state"] != "cancelled" or info["rc"] != 75:
+            raise AssertionError(f"phase 12 cancel: {rec['cancel']}")
+
+        _, prog = http_json("GET", base + "/progress")
+        rec["server_launches"] = prog["launches"]
+        rec["pool_bytes"] = prog["programs"]["pool_bytes"]
+        if any(prog["launches"][k] <= 0 for k in SERVE_KERNELS):
+            raise AssertionError(f"phase 12 server launches {prog}")
+        code, body = http_json("POST", base + "/jobs",
+                               dict(s64, faults="stall@1"))
+        jid = body["id"]
+        wait_state(base, jid, ("running",))
+        time.sleep(0.5)
+        rc = srv.stop("SIGTERM")
+        state = json.load(open(os.path.join(d, "spool", "state.json")))
+        held = {j["id"]: j["state"] for j in state["jobs"]}
+        rec["drain"] = {"rc": rc, "state": held[jid]}
+        if rc != 75 or held[jid] != "interrupted":
+            raise AssertionError(f"phase 12 drain: rc {rc}, {held}\n"
+                                 f"{srv.tail()}")
+        srv = ServeProc(argv, os.path.join(d, "serve_restart.log"), env)
+        procs.append(srv)
+        rec["start_to_ready_s"].append(srv.wait_ready())
+        base = srv.base
+        t0 = time.perf_counter()
+        info = wait_state(base, jid, ("done", "failed", "cancelled"), 300)
+        code, data = http_json("GET", f"{base}/jobs/{jid}/output")
+        rec["restart"] = {"state": info["state"], "md5": _md5(data),
+                          "seconds": time.perf_counter() - t0}
+        print(f"[chip_smoke] phase 12 drain {rec['drain']}, restart "
+              f"{rec['restart']}", flush=True)
+        if rec["restart"]["md5"] != SCALE64_MD5:
+            raise AssertionError(f"phase 12 restart: {rec['restart']}")
+        rc = srv.stop("SIGTERM")
+        if rc != 0:
+            raise AssertionError(f"phase 12: the restarted server exited "
+                                 f"{rc} on SIGTERM\n{srv.tail()}")
+
+        rec["fleet"] = serve_fleet(device, d, s64)
+    finally:
+        for p in procs:
+            p.close()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["cold_cli"] = cold
+    solo = [r["submit_to_done_s"] for r in rec["steady"][:4]]
+    print(f"[chip_smoke] phase 12 report: server start-to-ready "
+          f"{rec['start_to_ready_s']} s; SCALE64 submit-to-done, warm wave "
+          f"{[round(r['submit_to_done_s'], 4) for r in rec['warm']]}, steady "
+          f"{[round(x, 4) for x in solo]} s (elapsed_s "
+          f"{[r['elapsed_s'] for r in rec['steady'][:4]]}); cold default CLI "
+          f"process (phase 10 medians) "
+          f"{cold if cold else 'not measured in this run'}; pool bytes "
+          f"{rec['pool_bytes']}; phase {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+def serve_fleet(device, d, s64):
+    """Phase 12's fleet: ``gateway`` and two ``serve --fleet`` replicas
+    (``--banded-impl rotband``) over one spool; four SCALE64 jobs through
+    the gateway; the replica holding the first running job SIGKILLed.
+    Returns the record; raises on a broken pin."""
+    import signal
+
+    spool = os.path.join(d, "fleet")
+    os.makedirs(spool)
+    base_port = free_ports(3)
+    procs = {}
+    rec = {}
+    try:
+        procs["gateway"] = ServeProc(
+            ["gateway", "--spool", spool, "--port", str(base_port + 2),
+             "--probe", "0.2"], os.path.join(d, "gateway.log"))
+        for k in range(2):
+            procs[f"r{k}"] = ServeProc(
+                ["serve", "--fleet", spool, "--port", str(base_port),
+                 "--replica-name", f"r{k}", "--lease-timeout",
+                 str(FLEET_LEASE_S), "--poll", "0.2", "--max-active", "2",
+                 "--device", device, "--banded-impl", "rotband",
+                 *SERVE_FLAGS], os.path.join(d, f"r{k}.log"),
+                {"CCSX_FAULT_STALL_S": SERVE_STALL_S})
+        t0 = time.perf_counter()
+        while procs["gateway"].bound() is None:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(procs["gateway"].tail())
+            time.sleep(0.05)
+        gw = procs["gateway"].bound()
+        while time.perf_counter() - t0 < 240:
+            code, body = http_json("GET", gw + "/replicas")
+            reps = body.get("replicas", []) if code == 200 else []
+            if len(reps) == 2 and all(r.get("ready") for r in reps):
+                break
+            for name, p in procs.items():
+                if p.proc.poll() is not None:
+                    raise AssertionError(f"{name} exited:\n{p.tail()}")
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"phase 12 fleet never ready: {body}")
+        rec["ready_s"] = time.perf_counter() - t0
+        ports = {r["name"]: r["port"] for r in reps}
+        ids, t_sub = [], {}
+        # the first job stalls in its first device step, so its holder is
+        # killed while the job is in flight (the survivor's resume stalls
+        # once more)
+        for k in range(4):
+            code, body = http_json("POST", gw + "/jobs", dict(
+                s64, **({"faults": "stall@1"} if k == 0 else {})))
+            if code != 201:
+                raise AssertionError(f"gateway submit: {code} {body}")
+            ids.append(body["id"])
+            t_sub[body["id"]] = time.perf_counter()
+        victim, victim_job = None, ids[0]
+        t0 = time.perf_counter()
+        while victim is None and time.perf_counter() - t0 < 120:
+            _, view = http_json("GET", f"{gw}/jobs/{victim_job}")
+            if view.get("state") == "running" and view.get("replica"):
+                victim = view["replica"]
+            time.sleep(0.02)
+        if victim is None:
+            raise AssertionError("phase 12 fleet: the stalled job was never "
+                                 "seen running")
+        time.sleep(0.5)
+        _, prog = http_json(
+            "GET", f"http://127.0.0.1:{ports[victim]}/progress")
+        rec["victim"] = {"name": victim, "job": victim_job,
+                         "launches": prog["launches"]}
+        procs[victim].proc.send_signal(signal.SIGKILL)
+        procs[victim].proc.wait(30)
+        t_kill = time.perf_counter()
+        done, t0 = {}, time.perf_counter()
+        while len(done) < len(ids) and time.perf_counter() - t0 < 240:
+            for jid in ids:
+                if jid in done:
+                    continue
+                _, view = http_json("GET", f"{gw}/jobs/{jid}")
+                if view.get("state") in ("done", "failed", "cancelled"):
+                    view["submit_to_done_s"] = time.perf_counter() - \
+                        t_sub[jid]
+                    done[jid] = view
+            time.sleep(0.05)
+        survivor = "r1" if victim == "r0" else "r0"
+        surv = f"http://127.0.0.1:{ports[survivor]}"
+        jobs = []
+        for jid in ids:
+            view = done.get(jid) or {"id": jid, "state": "lost"}
+            if view["state"] == "done":
+                _, data = http_json("GET", f"{gw}/jobs/{jid}/output")
+                view["md5"] = _md5(data)
+                if view.get("replica") == survivor:
+                    _, info = http_json("GET", f"{surv}/jobs/{jid}")
+                    view["metrics"] = info.get("metrics")
+            jobs.append(job_record(view))
+        _, prog = http_json("GET", surv + "/progress")
+        markers = sorted(n for n in os.listdir(spool)
+                         if n.startswith("done.") and n.endswith(".json"))
+        rec.update(jobs=jobs, survivor_launches=prog["launches"],
+                   markers=markers, requeue_s=time.perf_counter() - t_kill)
+        print(f"[chip_smoke] phase 12 fleet: killed {victim} mid "
+              f"{victim_job}; " + json.dumps(rec), flush=True)
+        bad = [j for j in jobs if j["state"] != "done"
+               or j["md5"] != SCALE64_MD5]
+        if bad:
+            raise AssertionError(f"phase 12 fleet jobs: {bad}")
+        if markers != sorted(f"done.{jid}.json" for jid in ids):
+            raise AssertionError(f"phase 12 fleet markers: {markers}")
+        if done[victim_job]["replica"] != survivor:
+            raise AssertionError("phase 12 fleet: the killed replica's job "
+                                 "was not finished by the survivor")
+        # the victim may die before its first launch (its job stalls in
+        # its first device step): it must only never have run the
+        # band-local fill
+        if rec["victim"]["launches"].get("banded_global"):
+            raise AssertionError(f"phase 12 fleet: the killed replica "
+                                 f"launched {rec['victim']['launches']}")
+        for n in (prog["launches"],) + tuple(
+                j["launches"] for j in jobs if j["launches"] is not None):
+            if n.get("banded_global") or any(n.get(k, 0) <= 0
+                                             for k in FLEET_KERNELS):
+                raise AssertionError(f"phase 12 fleet launches {n}")
+        if not any(j["launches"] is not None for j in jobs):
+            raise AssertionError("phase 12 fleet: no job's own launches")
+        rc = procs[survivor].stop("SIGTERM")
+        rcg = procs["gateway"].stop("SIGTERM")
+        rec["stop_rc"] = {survivor: rc, "gateway": rcg}
+        if rc != 0 or rcg != 0:
+            raise AssertionError(f"phase 12 fleet stop: {rec['stop_rc']}")
+    finally:
+        for p in procs.values():
+            p.close()
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2816,6 +3312,10 @@ def main(argv=None) -> int:
                     help="build, run the scale corpus once and traced once, "
                          "then phase 11 (the index, sharded runs, "
                          "telemetry, report) alone, printing its record")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 12 "
+                         "(the resident server and its replica fleet) "
+                         "alone, printing its record")
     ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
                     help="with --warmup-only: also two cold CLI processes "
                          "of each dispatch arm on a corpus of N holes")
@@ -2862,6 +3362,10 @@ def main(argv=None) -> int:
         _, first = traced_scale64("cuda", "t1")
         print(json.dumps({"shards": phase_shards(
             "cuda", (first["trace"], first["metrics"]))}))
+        return 0
+    if args.serve_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"serve": phase_serve("cuda")}))
         return 0
     if args.warmup_only:
         phase_scale64("cuda", INLINE)
@@ -2919,6 +3423,7 @@ def main(argv=None) -> int:
     shards = phase_shards("cuda", (os.path.join(WORK, "rec_t1_trace.jsonl"),
                                    os.path.join(WORK,
                                                 "rec_t1_metrics.jsonl")))
+    served = phase_serve("cuda", warm["cold"]["medians"]["default"])
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -2973,7 +3478,8 @@ def main(argv=None) -> int:
                       "crash_resume": crash,
                       "host_planes": planes,
                       "warmup": warm,
-                      "shards": shards}))
+                      "shards": shards,
+                      "serve": served}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -623,6 +623,44 @@ def test_no_replay_comes_between_another_replay_and_its_clone(cuda):
     assert (box["waited"], same) == (True, True)
 
 
+def test_clear_waits_for_another_threads_replay_and_its_clone(cuda):
+    """graphs.clear from another thread (a sibling served job's OOM resplit)
+    while a program's replay is launched and its output not yet cloned:
+    the clear waits for that clone, the output equals the eager step's, and
+    then every program is gone."""
+    from ccsx_tpu_torch.pipeline import graphs
+
+    graphs.clear()
+    cfg = CcsConfig(is_bam=False)
+    _, slabs = _refine_slabs(np.random.default_rng(17), cfg, 1, tmax=1536)
+    ex = batch.BatchExecutor(cfg, device="cuda")
+    R, H = slabs[0][0].shape[0], slabs[0][4].shape[0]
+    b = ex._packed_program(1024, 1536, 2, R, H)
+    graph, box = b.graph, {}
+
+    class Between:
+        """b's graph: after its replay is launched, another thread clears
+        the programs and is given half a second to finish."""
+
+        def replay(self):
+            graph.replay()
+            th = box["thread"] = threading.Thread(target=graphs.clear)
+            th.start()
+            th.join(timeout=0.5)
+            box["waited"] = th.is_alive()
+
+    b.graph = Between()
+    try:
+        out = b.run(*batch._pack_slab_args(slabs[0], pin=True))
+    finally:
+        b.graph = graph
+        box["thread"].join()
+    step = batch._refine_step_packed(AlignParams(), 4, 1536, 2, H,
+                                     ex._bp_consts(), (R, 1024))
+    same = torch.equal(out.cpu(), step(*batch._pack_slab_args(slabs[0])))
+    assert (box["waited"], same, len(graphs._programs)) == (True, True, 0)
+
+
 def test_dispatch_runs_eagerly_then_replays_a_graph(cuda, monkeypatch):
     """graphs.dispatch with CAPTURE_AT 2 on three same-shape slabs: the
     first runs the step eagerly, the second captures the graph from the

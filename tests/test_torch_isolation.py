@@ -59,7 +59,10 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.pipeline.graphs",
             "ccsx_tpu_torch.io.bamindex", "ccsx_tpu_torch.utils.telemetry",
             "ccsx_tpu_torch.utils.report",
-            "ccsx_tpu_torch.parallel.distributed"} <= set(mods)
+            "ccsx_tpu_torch.parallel.distributed",
+            "ccsx_tpu_torch.utils.lease", "ccsx_tpu_torch.pipeline.gateway",
+            "ccsx_tpu_torch.pipeline.serve",
+            "ccsx_tpu_torch.pipeline.fleet"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -354,12 +357,8 @@ COPIES = {
     # the hole index: the same sidecar name, version and bytes
     "io/bamindex.py": (set(), set(), set(), None),
     # the port's step counters are exported too (the schema guard holds
-    # every snapshot key to a declared family); a spool directory has no
-    # gateway to list its replicas; the serving plane's per-job and fleet
-    # renderers wait for that plane
-    "utils/telemetry.py": (
-        {"PROM_COUNTERS", "expand_sources"}, set(),
-        {"render_job_series", "render_fleet_series"}, None),
+    # every snapshot key to a declared family)
+    "utils/telemetry.py": ({"PROM_COUNTERS"}, set(), set(), None),
     "utils/report.py": (set(), set(), set(), None),
     # a rank runs through run.run_pipeline's setup, which owns the
     # Metrics (no mesh precheck, no device context); no multi-process
@@ -368,6 +367,32 @@ COPIES = {
         {"run_pipeline_sharded"}, set(),
         {"init_distributed", "from ccsx_tpu.utils.metrics import Metrics"},
         None),
+    # the lease primitive and the spool protocol with its gateway: plain
+    # copies
+    "utils/lease.py": (set(), set(), set(), None),
+    "pipeline/gateway.py": (set(), set(), set(), None),
+    # a range runs through run.run_pipeline's setup (its open_io opens the
+    # range's stream, journal and shard writer): no mesh precheck
+    "pipeline/fleet.py": ({"_run_range"}, set(), set(), None),
+    # the serving plane: run.run_pipeline (batched) is the job entry, with
+    # RunMetrics; no per-job resilience (dispatch_deadline_s and
+    # breaker_strikes refused); a device fault stops the server
+    # (_device_stop, readiness' "device_fault", serve_main's loop and rc
+    # 1, the card and kernels up before the port binds); job snapshots
+    # carry the port's step counters and the job's own launches, eager
+    # dispatches and replays (cuda_ext.scope around the job thread); the
+    # server's snapshot carries the refine programs' cumulative counts
+    "pipeline/serve.py": (
+        {"Job.__init__", "Job.info", "ServeCore.__init__",
+         "ServeCore._build_job", "ServeCore._help_fanout",
+         "ServeCore._job_main", "ServeCore._run_fanout",
+         "ServeCore._run_job", "ServeCore.readiness",
+         "_JobRuntime.__init__", "serve_main"},
+        {"ServeCore._device_stop", "ServeMetrics", "ServeMetrics.snapshot",
+         "_REFUSED_OVERRIDES",
+         "from ccsx_tpu.utils.run_metrics import PORT_KEYS",
+         "from ccsx_tpu.utils.run_metrics import RunMetrics"},
+        set(), None),
 }
 
 
@@ -386,6 +411,48 @@ def test_host_plane_copies_differ_only_where_listed(mod):
     if drop:
         raw = _top_level(ROOT / "ccsx_tpu" / mod)
         assert all(raw[k] != ref[k] for k in drop)
+
+
+@pytest.mark.parametrize("name", ["count_raw_holes", "slice_raw_holes"])
+def test_run_hole_range_helpers_are_copies(name):
+    """The fleet plane's raw-hole helpers in pipeline/run.py are the JAX
+    package's, definition for definition."""
+    port = _top_level(PKG / "pipeline" / "run.py")
+    ref = _top_level(ROOT / "ccsx_tpu" / "pipeline" / "run.py")
+    assert port[name] == ref[name]
+
+
+def test_gateway_and_spool_modules_run_without_torch(tmp_path):
+    """`python -m ccsx_tpu_torch.cli gateway` (its --help here), the spool
+    protocol, the lease primitive and `top` over a spool directory load
+    neither torch, jax nor the JAX package: the gateway keeps routing
+    while every replica's card is wedged."""
+    blocked = FORBIDDEN + ("torch",)
+    blocker = _BLOCKER.replace(repr(FORBIDDEN), repr(blocked))
+    spool = tmp_path / "spool"
+    spool.mkdir()
+    code = blocker + (
+        "import contextlib, io, runpy\n"
+        "from ccsx_tpu_torch.pipeline import gateway\n"
+        "from ccsx_tpu_torch.utils import lease, telemetry\n"
+        "jid = gateway.submit_job(%r, input_path='/x.fa')\n"
+        "assert gateway.job_view(%r, jid)['state'] == 'queued'\n"
+        "assert telemetry.expand_sources([%r])[0].endswith('<no-replicas>')\n"
+        "sys.argv = ['ccsx_tpu_torch.cli', 'gateway', '--help']\n"
+        "buf = io.StringIO()\n"
+        "try:\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        runpy.run_module('ccsx_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code\n"
+        "assert '--spool' in buf.getvalue()\n"
+        "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
+        "print('ok')\n" % (str(spool), str(spool), str(spool), blocked))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_native_source_is_byte_equal_to_the_jax_packages():

@@ -340,12 +340,19 @@ def test_top_unreachable_endpoint_and_spool_degrade(tmp_path, capsys):
     src = telemetry.read_source(f"127.0.0.1:{_free_port()}", timeout=0.3)
     assert src["status"] == "unreachable"
     assert telemetry.aggregate([src])["any_degraded"] is True
-    # a spool directory: no gateway lists its replicas, so it is DOWN
+    # a spool directory with no live replica slot is DOWN, not empty
     assert telemetry.expand_sources([str(tmp_path)]) == \
         [os.path.join(str(tmp_path), "<no-replicas>")]
-    assert "gateway" in capsys.readouterr().err
     assert cli.main(["top", "--once", "--no-color", str(tmp_path)]) == 0
     assert "unreachable" in capsys.readouterr().out
+    # a replica's slot lease (pipeline/gateway.py) lists its endpoint
+    from ccsx_tpu_torch.pipeline import gateway
+
+    port = _free_port()
+    gateway.acquire_replica_slot(str(tmp_path), "A", extra={
+        "addr": "127.0.0.1", "port": port})
+    assert telemetry.expand_sources([str(tmp_path)]) == \
+        [f"127.0.0.1:{port}"]
 
 
 def test_top_tails_metrics_jsonl(tmp_path, capsys):
