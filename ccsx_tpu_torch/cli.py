@@ -28,6 +28,7 @@ the card (PERF.md).
     python -m ccsx_tpu_torch.cli report <trace/metrics JSONL>... [-o HTML]
     python -m ccsx_tpu_torch.cli serve [serve options] [options]
     python -m ccsx_tpu_torch.cli gateway --spool DIR [options]
+    python -m ccsx_tpu_torch.cli shepherd --hosts N [options] <INPUT> <OUTPUT>
 
 The subcommands are dispatched before the run's arguments are parsed.
 ``stats``, ``blackbox``, ``top``, ``report`` and ``gateway`` load neither
@@ -37,7 +38,11 @@ jobs, on a host whose card is wedged.  ``serve`` is the resident server
 every job.
 
 A sharded run is one process per rank, ``--hosts N --host-id R`` each
-(several ranks may share one card), then ``--merge-shards N`` once.
+(several ranks may share one card), then ``--merge-shards N`` once;
+``shepherd`` (pipeline/supervisor.py) launches, restarts and merges them,
+runs an elastic fleet of leased ranges (``--fleet-ranges``, ``--join``),
+or supervises serve replicas (``--serve-replicas``).  It loads no torch;
+its children run on the card unless ``--device cpu`` is forwarded.
 """
 
 from __future__ import annotations
@@ -184,6 +189,29 @@ serve [opts]          resident multi-tenant server: HTTP job API (POST
                       SPOOL makes it one replica of a fleet; the run's
                       options after its own configure every job
 gateway --spool DIR   balancer over a serve fleet's spool (no torch)
+shepherd --hosts N [opts] <INPUT> <OUTPUT>
+                      supervisor of a sharded run: launches the N ranks
+                      as subprocesses (on the card unless --device cpu),
+                      watches their shard-journal heartbeats (and
+                      per-rank /healthz with --telemetry-port), restarts
+                      a dead or stalled rank with exponential backoff
+                      (it resumes from its shard journal), then merges.
+                      --max-rank-restarts N [2], --rank-backoff SEC [1.0],
+                      --rank-stall-timeout SEC (0 = off; size it above a
+                      rank's start-up plus its first retirement) [0].
+                      --fleet-ranges M: the elastic scheduler instead:
+                      M leased ranges pulled by the N workers, a dead
+                      worker's ranges requeued to the survivors, a
+                      drained one (rc 75) a voluntary leave, stale
+                      leases expired after --lease-timeout SEC [10];
+                      `shepherd --join <OUTPUT>.fleet --hosts K` adds K
+                      workers to a running fleet.
+                      --serve-replicas N [--gateway-port P]
+                      [--max-replica-restarts N] [--replica-backoff SEC]
+                      --fleet SPOOL [serve and run options]: N `serve
+                      --fleet` replicas and the gateway as children,
+                      relaunched with backoff when they crash; SIGTERM
+                      drains every child
 
 Fleet pull worker (long):
 --fleet-dir <dir>     pull leased ranges of a fleet directory (its
@@ -398,6 +426,12 @@ def config_from_args(args) -> CcsConfig:
 def main(argv: Optional[list] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "shepherd":
+        # the supervisor (pipeline/supervisor.py): subprocess ranks,
+        # fleet workers or serve replicas; no torch import here
+        from ccsx_tpu_torch.pipeline.supervisor import shepherd_main
+
+        return shepherd_main(argv[1:])
     if argv and argv[0] == "stats":
         # trace/metrics JSONL summarizer: no torch import, no card
         from ccsx_tpu_torch.utils import trace as trace_mod

@@ -1660,6 +1660,11 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
               else int(cfg.zmw_microbatch))
     growth = max(2, int(cfg.chunk_growth))
     window = cap if explicit_window else max(1, cap // (growth * growth))
+    # with the prep pool, a hole is written only once the stream has been
+    # read the first window past it (PrepPool.emit_ok): a stream error
+    # then leaves the same holes written in every run, none of them when
+    # it falls in the first window, as on the inline path
+    emit_lead = window
     n_prep = resolve_prep_threads(cfg)
     # the warmup plane: as soon as prep yields a hole's first
     # RefineRequest, its group's canonical programs are captured on this
@@ -1693,6 +1698,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     def emit_ready():
         nonlocal next_emit
         while next_emit in finished:
+            if pool is not None and not pool.emit_ok(next_emit, emit_lead):
+                break
             h = finished.pop(next_emit)
             if h.resumed:
                 next_emit += 1
@@ -1806,6 +1813,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                         adm.wait(0.2)
                     continue
                 if pool.drained():
+                    # the stream's end opens the emission gate: write
+                    # the rest, or raise its error
+                    emit_ready()
+                    pool.emit_ok(next_emit, emit_lead)
                     break
                 # nothing dispatchable: the driver is blocked on prep.
                 # Accumulate while prep keeps delivering (sweeping the

@@ -37,7 +37,12 @@ Invariants preserved (pinned by tests/test_torch_prep_pool.py):
 * A prep-thread exception quarantines exactly that hole (hole.err set,
   generator closed), never the run — the same contract as the inline
   ``_start_hole``.  An INGEST failure (corrupt stream) is re-raised on
-  the driver thread so the drivers' existing clean-rc-1 handling fires.
+  the driver thread so the drivers' existing clean-rc-1 handling fires:
+  by ``emit_ok``, at a point in the emission order that the threads'
+  timing cannot move (the holes written before a given stream error are
+  the same in every run; the JAX package's pool raises it at the first
+  ``poll``/``get`` that finds nothing prepped, which depends on how far
+  prep got).
 * A fault of the card or a kernel (``cuda_ext.is_device_fault``) is not
   one hole's: the pump or the worker that meets it keeps it aside as a
   ``cuda_ext.KernelError``, and the driver thread re-raises it at its
@@ -193,6 +198,7 @@ class PrepPool:
         self._outstanding = 0        # ingested, not yet handed to driver
         self._exhausted = False      # stream EOF (or ingest error) seen
         self._ingest_error: Optional[BaseException] = None
+        self._error_at = 0           # holes ingested before the error
         self._fatal: Optional[cuda_ext.KernelError] = None
         self._stop = False
         metrics.prep_threads = max(1, int(threads))
@@ -244,8 +250,10 @@ class PrepPool:
                 self._set_exhausted()
                 return None
             except Exception as e:
-                # surfaced to the driver thread at the next poll/get so
-                # the drivers' invalid-input rc-1 handling stays theirs
+                # surfaced to the driver thread by emit_ok, so the
+                # drivers' invalid-input rc-1 handling stays theirs; set
+                # before the exhausted flag, which emit_ok reads first
+                self._error_at = self._next_idx
                 self._ingest_error = e
                 self._set_exhausted()
                 return None
@@ -342,11 +350,6 @@ class PrepPool:
 
     # ---- driver side -----------------------------------------------------
 
-    def _raise_ingest_error(self) -> None:
-        if self._ingest_error is not None:
-            e, self._ingest_error = self._ingest_error, None
-            raise e
-
     def _raise_fatal_locked(self) -> None:
         if self._fatal is not None:
             raise self._fatal
@@ -363,7 +366,6 @@ class PrepPool:
             self._raise_fatal_locked()
             if self._ready:
                 return self._take_locked()
-        self._raise_ingest_error()
         return None
 
     def get(self, timeout: float = 1.0):
@@ -377,8 +379,21 @@ class PrepPool:
             self._raise_fatal_locked()
             if self._ready:
                 return self._take_locked()
-        self._raise_ingest_error()
         return None
+
+    def emit_ok(self, idx: int, lead: int) -> bool:
+        """May the driver write hole ``idx`` now?  Only once the stream
+        has been read ``lead`` holes past it, or to its clean end; a
+        stream error within ``lead`` holes of it is raised here instead.
+        So the holes a stream error leaves written are those more than
+        ``lead`` before it, whatever the threads' timing (the inline
+        driver, which admits a window before it sweeps, writes none of
+        the first window's holes either)."""
+        ended = self._exhausted   # read first: the error is set before it
+        err = self._ingest_error
+        if err is not None and idx + lead >= self._error_at:
+            raise err
+        return self._next_idx > idx + lead or (ended and err is None)
 
     def drained(self) -> bool:
         """True once no hole will ever be published again."""

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
                           [--kernels-only | --host-planes-only |
                            --warmup-only [--cold-holes N] | --shards-only |
-                           --serve-only]
+                           --serve-only | --supervisor-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -150,11 +150,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    meanwhile, the pinned md5); the scale corpus in process three times
    each without ``--telemetry-port``, with it, and with it scraped at
    20 Hz, alternating; ``report`` over phase 7's first traced run (its
-   timeline names ``refine_packed`` and ``pair_fill`` spans); and a
-   corpus of 2048 holes (``big_corpus``) in one cold process against two
-   cold ranks in range mode, whose merge must be its bytes.
+   timeline names ``refine_packed`` and ``pair_fill`` spans).
    ``--shards-only`` runs this phase alone after one scale run and one
-   traced run;
+   traced run, and adds a corpus of 2048 holes (``big_corpus``) in one
+   cold process against two cold ranks in range mode, whose merge must be
+   its bytes;
 12. the resident server and its replica fleet, each a ``python -m
    ccsx_tpu_torch.cli`` process on the card (``serve`` with ``-M
    4000000``, which both corpora pass; every SCALE64 job under inline prep
@@ -178,6 +178,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    fill and never the band-local one.  Submit-to-done seconds, each job's
    ``elapsed_s``, start-to-ready seconds and the pool's bytes are reported
    beside phase 10's cold CLI processes, not gated.  ``--serve-only`` runs
+   this phase alone after one scale run;
+13. the supervisor, each command a ``python -m ccsx_tpu_torch.cli
+   shepherd`` process on the card over the scale corpus's BGZF BAM and its
+   hole index, its children reporting their kernel launches at exit
+   through a hook on their PYTHONPATH (``CHILD_HOOK``): (a) ``--hosts 2
+   --prep-threads 0 --max-rank-restarts 2 --rank-backoff 0.5`` with
+   ``CCSX_FAULTS=rank_death@10`` in the shepherd's environment and the
+   kernels' build directory emptied (the first launches build every kernel
+   at once, as in a fresh checkout: one library a source after): every
+   first launch dies (rc 57), each restart resumes from its shard journal
+   and launches the default arm's kernels, the merge is the pinned md5;
+   (b) the same with ``--inject-faults stall@5`` and a
+   ``--rank-stall-timeout`` of twice (a)'s slowest launch-to-first-
+   retirement: the shepherd kills each wedged rank, the restart runs
+   clean, the md5; (c) ``--hosts 2 --fleet-ranges 8
+   --max-rank-restarts 0`` with worker w1 SIGKILLed mid-range (holding a
+   lease, a hole of it retired): the survivor absorbs its ranges,
+   "merged 64 records from 8 leased ranges", the md5, the fleet directory
+   removed; then one worker
+   (stalled in its first device step) and ``shepherd --join <out>.fleet
+   --hosts 1`` mid-run: both rc 0, the md5, the joined worker's launches;
+   (d) ``--serve-replicas 2 --gateway-port P --fleet SPOOL --port Q -M
+   4000000 --banded-impl rotband``, four SCALE64 jobs through the
+   gateway, the replica holding the first (stalled) job SIGKILLed: its
+   relaunch (attempt 1) comes back ready, every job ends at the md5 with
+   one done marker and its own launches through the rotating-band fill
+   and never the band-local one; SIGTERM to the shepherd drains every
+   child and it exits 0.  Walls, start-ups, death to relaunch and
+   relaunch to ready are reported, not gated.  ``--supervisor-only`` runs
    this phase alone after one scale run.
 
 The last lines are the kernels' JSON record, the card line, and
@@ -3284,6 +3313,602 @@ def serve_fleet(device, d, s64):
     return rec
 
 
+# phase 13: the supervisor on the card, each command a ``python -m
+# ccsx_tpu_torch.cli shepherd ...`` process.  Its children read the hook
+# below from their PYTHONPATH (a sitecustomize: the interpreter imports it
+# at start-up): at their exit, os._exit included, each writes its kernel
+# launches to its log, so a child's launches are read without a CLI flag
+CHILD_HOOK = '''\
+import atexit, json, os, sys
+
+
+def _ccsx_launches():
+    m = sys.modules.get("ccsx_tpu_torch.ops.cuda_ext")
+    if m is not None:
+        sys.stderr.write("[chip_smoke] child %d launches %s\\n"
+                         % (os.getpid(), json.dumps(dict(m.LAUNCHES))))
+        sys.stderr.flush()
+
+
+_real_exit = os._exit
+
+
+def _ccsx_exit(code):
+    _ccsx_launches()
+    _real_exit(code)
+
+
+os._exit = _ccsx_exit
+atexit.register(_ccsx_launches)
+'''
+# the retirement at which (a)'s first launches die, the device step at which
+# (b)'s stall, and the leased ranges of (c)
+SHEP_DEATH_AT = 10
+SHEP_STALL_AT = 5
+FLEET_RANGES = 8
+# (c)'s join trial: the primary's only worker stalls this long in its first
+# device step, so the joined worker arrives while ranges are still queued
+JOIN_STALL_S = "15"
+
+
+def child_hook_dir():
+    d = os.path.join(WORK, "child_hook")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "sitecustomize.py"), "w") as f:
+        f.write(CHILD_HOOK)
+    return d
+
+
+class ShepherdProc:
+    """One ``python -m ccsx_tpu_torch.cli shepherd ARGV`` process, with the
+    child hook on its (and so its children's) PYTHONPATH; a thread reads
+    its stderr, each line stamped with ``time.time()``."""
+
+    def __init__(self, argv, env_extra=None):
+        import threading
+
+        env = dict(os.environ)
+        env.pop("CCSX_FAULTS", None)
+        env.update(env_extra or {})
+        env["PYTHONPATH"] = os.pathsep.join([child_hook_dir(), HERE])
+        self.t0 = time.time()
+        self.lines = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ccsx_tpu_torch.cli", "shepherd", *argv],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip("\n")))
+
+    def find(self, pattern):
+        """(time, match) of every line matching ``pattern``."""
+        import re
+
+        out = []
+        for t, line in list(self.lines):
+            m = re.search(pattern, line)
+            if m:
+                out.append((t, m))
+        return out
+
+    def text(self):
+        return "\n".join(line for _, line in list(self.lines))
+
+    def wait(self, timeout):
+        rc = self.proc.wait(timeout)
+        self._reader.join(10)
+        return rc
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+class MtimeWatch:
+    """Every distinct mtime of some files, polled every 20 ms on a thread
+    (the heartbeat the shepherd reads): ``seen[path]`` lists them."""
+
+    def __init__(self, paths):
+        import threading
+
+        self.seen = {p: [] for p in paths}
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._poll, daemon=True)
+        self._t.start()
+
+    def _poll(self):
+        while not self._stop.is_set():
+            for p, ms in self.seen.items():
+                try:
+                    m = os.stat(p).st_mtime
+                except OSError:
+                    continue
+                if not ms or ms[-1] != m:
+                    ms.append(m)
+            self._stop.wait(0.02)
+
+    def first_after(self, paths, t, end=float("inf")):
+        """Seconds from ``t`` to the first change of ``paths`` in (t,
+        end), or None."""
+        ms = [m for p in paths for m in self.seen[p] if t < m < end]
+        return min(ms) - t if ms else None
+
+    def close(self):
+        self._stop.set()
+        self._t.join(5)
+
+
+def log_attempts(path):
+    """A child log's attempts (the launcher's banners split it): for each,
+    its text, its last launch counts and its last -v snapshot."""
+    text = open(path).read()
+    parts = text.split("\n=== ")[1:]
+    out = []
+    for part in parts:
+        launches = [json.loads(ln.split(" ", 4)[4]) for ln in
+                    part.splitlines()
+                    if ln.startswith("[chip_smoke] child ")]
+        snaps = [json.loads(ln.split(" ", 1)[1]) for ln in part.splitlines()
+                 if ln.startswith("[ccsx-tpu-torch] {")]
+        out.append({"banner": part.splitlines()[0],
+                    "launches": launches[-1] if launches else None,
+                    "final": snaps[-1] if snaps else None, "text": part})
+    return out
+
+
+def launched(n, kernels, absent=()):
+    return bool(n) and all(n.get(k, 0) > 0 for k in kernels) and not any(
+        n.get(k, 0) for k in absent)
+
+
+def rank_startups(p, watch, out, journal, hosts):
+    """Per rank and attempt: seconds from the shepherd's launch line to the
+    rank's first heartbeat (any of its shard files) and to its first
+    journal write (its first retirement)."""
+    from ccsx_tpu_torch.pipeline import supervisor
+
+    rows = []
+    ups = p.find(r"rank (\d+) up \(pid (\d+), attempt (\d+)")
+    for k, (t, m) in enumerate(ups):
+        r = int(m.group(1))
+        # this launch's beats: up to the rank's next launch
+        end = min([u for u, n in ups[k + 1:] if n.group(1) == m.group(1)],
+                  default=float("inf"))
+        paths = supervisor._beat_paths(out, journal, r)
+        rows.append({"rank": r, "attempt": int(m.group(3)),
+                     "first_beat_s": watch.first_after(paths, t, end),
+                     "first_retirement_s": watch.first_after(paths[:1], t,
+                                                             end)})
+    return rows
+
+
+def shepherd_static(device, src, d, tag, argv, env, hosts=2):
+    """One static shepherd run of ``src``: returns (rc, wall, the process,
+    the heartbeat watch, the output path)."""
+    from ccsx_tpu_torch.pipeline import supervisor
+
+    out = os.path.join(d, f"{tag}.fa")
+    journal = f"{out}.shepherd.journal"
+    watch = MtimeWatch([pth for r in range(hosts)
+                        for pth in supervisor._beat_paths(out, journal, r)])
+    p = ShepherdProc(["--hosts", str(hosts), "--device", device, *INLINE,
+                      *argv, src, out], env)
+    try:
+        rc = p.wait(600)
+    finally:
+        p.close()
+        watch.close()
+    return rc, time.time() - p.t0, p, watch, out
+
+
+def shepherd_deaths(device, src, d):
+    """(a): both ranks' first launches die at their SHEP_DEATH_AT-th
+    retirement (rank_death, rc 57, inherited from the shepherd's
+    environment); each restart runs clean, resumes from its shard journal
+    and launches the default arm's kernels; the merge is the pinned md5.
+    The kernels' build directory is emptied first, as in a fresh
+    checkout: the two first launches build every kernel at once, and the
+    directory must end with one library a source, no temp file left."""
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    shutil.rmtree(cuda_ext.BUILD_DIR, ignore_errors=True)
+    rc, wall, p, watch, out = shepherd_static(
+        device, src, d, "deaths",
+        ["-v", "--max-rank-restarts", "2", "--rank-backoff", "0.5"],
+        {"CCSX_FAULTS": f"rank_death@{SHEP_DEATH_AT}",
+         "CCSX_JOURNAL_FSYNC_S": "0"})
+    rec = {"wall_s": wall, "rc": rc,
+           "startups": rank_startups(p, watch, out,
+                                     f"{out}.shepherd.journal", 2),
+           "death_to_relaunch_s": []}
+    md5 = _md5(open(out, "rb").read()) if os.path.exists(out) else None
+    rec["md5"] = md5
+    rec["kernel_libraries"] = sorted(os.listdir(cuda_ext.BUILD_DIR)) \
+        if os.path.isdir(cuda_ext.BUILD_DIR) else []
+    for r in range(2):
+        died = p.find(rf"rank {r} died \(rc 57\)")
+        up = p.find(rf"rank {r} up \(pid \d+, attempt 1")
+        if died and up:
+            rec["death_to_relaunch_s"].append(up[0][0] - died[0][0])
+        att = log_attempts(f"{out}.shard{r}.log")
+        # a resumed hole is ingested and neither written nor filtered nor
+        # failed: the journal's cursor at the death
+        rec[f"rank{r}"] = [{"banner": a["banner"],
+                            "launches": a["launches"],
+                            "resumed_holes": a["final"] and (
+                                a["final"]["holes_in"]
+                                - a["final"]["holes_out"]
+                                - a["final"]["holes_filtered"]
+                                - a["final"]["holes_failed"])}
+                           for a in att]
+    print(f"[chip_smoke] phase 13 (a) rank deaths: {json.dumps(rec)}",
+          flush=True)
+    if rc != 0 or md5 != SCALE64_MD5:
+        raise AssertionError(f"phase 13 (a): rc {rc}, md5 {md5}\n"
+                             f"{p.text()[-4000:]}")
+    if device == "cuda" and sorted(
+            f.split("-")[0] for f in rec["kernel_libraries"]) != sorted(
+            cuda_ext.SOURCES):
+        raise AssertionError(f"phase 13 (a) kernel libraries: "
+                             f"{rec['kernel_libraries']}")
+    for r in range(2):
+        att = rec[f"rank{r}"]
+        if (len(att) != 2 or "attempt 0" not in att[0]["banner"]
+                or "attempt 1" not in att[1]["banner"]
+                or not p.find(rf"rank {r} died \(rc 57\)")
+                or att[1]["resumed_holes"] != SHEP_DEATH_AT
+                or not launched(att[1]["launches"], CRASH_KERNELS)):
+            raise AssertionError(f"phase 13 (a) rank {r}: {att}")
+    return rec
+
+
+def shepherd_stall(device, src, d, stall_timeout, startups):
+    """(b): both ranks' first launches stall in their SHEP_STALL_AT-th
+    device step for longer than ``stall_timeout`` (``--inject-faults``,
+    forwarded, stripped from restarts); the shepherd kills each wedged
+    rank, the restart runs clean, the merge is the pinned md5."""
+    stall_s = stall_timeout + 120
+    rc, wall, p, watch, out = shepherd_static(
+        device, src, d, "stall",
+        ["--max-rank-restarts", "2", "--rank-backoff", "0.5",
+         "--rank-stall-timeout", str(stall_timeout),
+         "--inject-faults", f"stall@{SHEP_STALL_AT}"],
+        {"CCSX_FAULT_STALL_S": str(stall_s)})
+    md5 = _md5(open(out, "rb").read()) if os.path.exists(out) else None
+    kills = p.find(r"rank (\d+) heartbeat stale for >")
+    rec = {"wall_s": wall, "rc": rc, "md5": md5,
+           "rank_stall_timeout_s": stall_timeout,
+           "sized_from_first_retirement_s": startups,
+           "killed": sorted(int(m.group(1)) for _, m in kills),
+           "startups": rank_startups(p, watch, out,
+                                     f"{out}.shepherd.journal", 2)}
+    for r in range(2):
+        rec[f"rank{r}"] = [{"banner": a["banner"],
+                            "launches": a["launches"]}
+                           for a in log_attempts(f"{out}.shard{r}.log")]
+    print(f"[chip_smoke] phase 13 (b) stalled ranks: {json.dumps(rec)}",
+          flush=True)
+    if rc != 0 or md5 != SCALE64_MD5 or not kills:
+        raise AssertionError(f"phase 13 (b): rc {rc}, md5 {md5}, kills "
+                             f"{rec['killed']}\n{p.text()[-4000:]}")
+    for r in rec["killed"]:
+        att = rec[f"rank{r}"]
+        if len(att) != 2 or not launched(att[1]["launches"], CRASH_KERNELS):
+            raise AssertionError(f"phase 13 (b) rank {r}: {att}")
+    if not p.find(r"rank \d+ stalled; restarting in"):
+        raise AssertionError(f"phase 13 (b): no restart\n{p.text()[-4000:]}")
+    return rec
+
+
+def fleet_mid_range(d, worker, m, timeout=300.0):
+    """(pid, range, seconds waited) once ``worker`` holds a range's lease
+    and has retired a hole of it (the range's journal exists) in the
+    fleet directory ``d``."""
+    from ccsx_tpu_torch.pipeline import fleet
+
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        for i in range(m):
+            try:
+                rec = fleet.read_lease(d, i)
+            except OSError:
+                rec = None
+            if rec and rec.get("worker") == worker and os.path.exists(
+                    os.path.join(d, f"journal.{i}")):
+                return int(rec["pid"]), i, time.time() - t0
+        time.sleep(0.01)
+    raise AssertionError(f"phase 13 (c): {worker} never held a range "
+                         "mid-way")
+
+
+def shepherd_fleet(device, src, d):
+    """(c): the elastic fleet, 2 workers over FLEET_RANGES leased ranges
+    with no restart budget, w1 SIGKILLed mid-range (it holds a lease and
+    has retired a hole of that range): the survivor absorbs its ranges,
+    the merge is the pinned md5 and the fleet directory is removed.  Then
+    a join trial: one worker (stalled
+    JOIN_STALL_S in its first device step) and ``shepherd --join`` adding
+    one more mid-run: both rc 0, the md5, the joined worker's launches."""
+    import signal
+
+    from ccsx_tpu_torch.pipeline import fleet
+
+    out = os.path.join(d, "fleet.fa")
+    fdir = fleet.fleet_dir_for(out)
+    p = ShepherdProc(["--hosts", "2", "--fleet-ranges", str(FLEET_RANGES),
+                      "--max-rank-restarts", "0", "--rank-backoff", "0.5",
+                      "--device", device, *INLINE, src, out],
+                     {"CCSX_JOURNAL_FSYNC_S": "0"})
+    rec = {}
+    try:
+        pid, rng_i, waited = fleet_mid_range(fdir, "w1", FLEET_RANGES)
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.time()
+        rc = p.wait(600)
+    finally:
+        p.close()
+    md5 = _md5(open(out, "rb").read()) if os.path.exists(out) else None
+    ups = {m.group(1): t for t, m in p.find(r"worker (w\d) up \(pid")}
+    w0 = log_attempts(f"{out}.fleet.w0.log")
+    rec["kill"] = {"rc": rc, "md5": md5, "wall_s": time.time() - p.t0,
+                   "w1_mid_range_after_start_s": waited,
+                   "w1_killed_on_range": rng_i,
+                   "kill_to_merge_s": (p.find(r"merged \d+ records")[0][0]
+                                       - t_kill) if p.find(
+                       r"merged \d+ records") else None,
+                   "w1_launch_to_kill_s": t_kill - ups.get("w1", t_kill),
+                   "w0_launches": w0[-1]["launches"] if w0 else None,
+                   "reclaimed": bool(p.find(r"w1 died \(rc -9\); requeued"))}
+    print(f"[chip_smoke] phase 13 (c) fleet, w1 killed: "
+          f"{json.dumps(rec['kill'])}", flush=True)
+    if (rc != 0 or md5 != SCALE64_MD5 or os.path.exists(fdir)
+            or not p.find(rf"merged {SCALE64_HOLES} records from "
+                          rf"{FLEET_RANGES} leased ranges")
+            or not launched(rec["kill"]["w0_launches"], CRASH_KERNELS)):
+        raise AssertionError(f"phase 13 (c): {rec['kill']}\n"
+                             f"{p.text()[-4000:]}")
+
+    out = os.path.join(d, "join.fa")
+    fdir = fleet.fleet_dir_for(out)
+    p = ShepherdProc(["--hosts", "1", "--fleet-ranges", str(FLEET_RANGES),
+                      "--device", device, *INLINE, src, out],
+                     {"CCSX_FAULTS": "stall@1",
+                      "CCSX_FAULT_STALL_S": JOIN_STALL_S})
+    j = None
+    try:
+        t0 = time.time()
+        while fleet.load_fleet(fdir) is None:
+            if time.time() - t0 > 120 or p.proc.poll() is not None:
+                raise AssertionError("phase 13 (c): no fleet to join\n"
+                                     + p.text()[-4000:])
+            time.sleep(0.05)
+        j = ShepherdProc(["--join", fdir, "--hosts", "1"])
+        jrc = j.wait(600)
+        rc = p.wait(600)
+    finally:
+        p.close()
+        if j is not None:
+            j.close()
+    md5 = _md5(open(out, "rb").read()) if os.path.exists(out) else None
+    names = [m.group(1) for _, m in j.find(r"joined worker (\S+) \(pid")]
+    joined = log_attempts(f"{out}.fleet.{names[0]}.log") if names else []
+    rec["join"] = {"rc": rc, "join_rc": jrc, "md5": md5,
+                   "wall_s": time.time() - p.t0,
+                   "joined_launches": joined[-1]["launches"] if joined
+                   else None}
+    print(f"[chip_smoke] phase 13 (c) join: {json.dumps(rec['join'])}",
+          flush=True)
+    if (rc != 0 or jrc != 0 or md5 != SCALE64_MD5
+            or not launched(rec["join"]["joined_launches"],
+                            ("traceback_walk",))):
+        raise AssertionError(f"phase 13 (c) join: {rec['join']}\n"
+                             f"{p.text()[-3000:]}\n{j.text()[-3000:]}")
+    return rec
+
+
+def shepherd_serve(device, src, d):
+    """(d): ``shepherd --serve-replicas 2 --gateway-port P --fleet SPOOL``
+    under ``--banded-impl rotband``; four SCALE64 jobs through the gateway,
+    the replica holding the first (stalled) job SIGKILLed mid-job: the
+    shepherd relaunches it (attempt 1) and it comes back ready, every job
+    ends at the md5 with one done marker, every job read launched the
+    rotating-band fill and never the band-local one; SIGTERM to the
+    shepherd drains every child and the shepherd exits 0, the JAX
+    package's rc when no child failed (``serve_fleet_run``)."""
+    import re
+    import signal
+
+    from ccsx_tpu_torch.pipeline import gateway
+
+    spool = os.path.join(d, "spool")
+    gw_port, base = free_ports(1), free_ports(2)
+    s64 = dict(SERVE_JOB, input=src)
+    p = ShepherdProc(["--serve-replicas", "2", "--gateway-port",
+                      str(gw_port), "--replica-backoff", "1", "--fleet",
+                      spool, "--port", str(base), "--lease-timeout",
+                      str(FLEET_LEASE_S), "--poll", "0.2", "--max-active",
+                      "2", "--device", device, "--banded-impl", "rotband",
+                      *SERVE_FLAGS], {"CCSX_FAULT_STALL_S": SERVE_STALL_S})
+    rec = {}
+
+    def ups(name):
+        return [(t, int(m.group(1))) for t, m in
+                p.find(rf"serve-fleet: {name} up \(pid (\d+), attempt")]
+
+    def ready_pids():
+        return {r["pid"]: r for r in gateway.discover_replicas(spool)
+                if r.get("ready")}
+
+    def wait_for(pred, what, timeout=240.0):
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            v = pred()
+            if v:
+                return v
+            if p.proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        raise AssertionError(f"phase 13 (d): {what}\n{p.text()[-4000:]}")
+
+    try:
+        wait_for(lambda: ups("s0") and ups("s1"), "replicas launched")
+        gw_log = os.path.join(spool, "gateway.log")
+
+        def gw_url():
+            try:
+                m = re.findall(r"gateway: http://[^:]+:(\d+) ",
+                               open(gw_log).read())
+            except OSError:
+                return None
+            return f"http://127.0.0.1:{m[-1]}" if m else None
+
+        gw = wait_for(gw_url, "the gateway's port")
+        first = {n: ups(n)[0] for n in ("s0", "s1")}
+        wait_for(lambda: {pid for _, pid in first.values()}
+                 <= set(ready_pids()), "both replicas ready")
+        t_ready = time.time()
+        rec["start_to_ready_s"] = {n: t_ready - t for n, (t, _) in
+                                   first.items()}
+        ids = []
+        for k in range(4):
+            code, body = http_json("POST", gw + "/jobs", dict(
+                s64, **({"faults": "stall@1"} if k == 0 else {})))
+            if code != 201:
+                raise AssertionError(f"phase 13 (d) submit: {code} {body}")
+            ids.append(body["id"])
+
+        def holder():
+            _, view = http_json("GET", f"{gw}/jobs/{ids[0]}")
+            return view.get("state") == "running" and view.get("replica")
+
+        victim = wait_for(holder, "the stalled job never ran", 120)
+        time.sleep(0.5)
+        old_pid = ups(victim)[-1][1]
+        os.kill(old_pid, signal.SIGKILL)
+        t_kill = time.time()
+        died = wait_for(lambda: p.find(rf"{victim} died \(rc -9\)"),
+                        "the death seen")[0][0]
+        t_up, new_pid = wait_for(lambda: len(ups(victim)) > 1 and
+                                 ups(victim)[1], "the relaunch")
+        wait_for(lambda: new_pid in ready_pids(), "the relaunch ready")
+        t_back = time.time()
+        rec["victim"] = {"name": victim, "job": ids[0],
+                         "kill_to_death_seen_s": died - t_kill,
+                         "death_to_relaunch_s": t_up - died,
+                         "relaunch_to_ready_s": t_back - t_up}
+
+        def all_done():
+            views = {}
+            for jid in ids:
+                _, v = http_json("GET", f"{gw}/jobs/{jid}")
+                if v.get("state") not in ("done", "failed", "cancelled"):
+                    return None
+                views[jid] = v
+            return views
+
+        views = wait_for(all_done, "the jobs", 300)
+        rec["jobs_done_after_kill_s"] = time.time() - t_kill
+        live = ready_pids()
+        jobs = []
+        for jid in ids:
+            v = views[jid]
+            if v["state"] == "done":
+                _, data = http_json("GET", f"{gw}/jobs/{jid}/output")
+                v["md5"] = _md5(data)
+            port = max((r for r in live.values()
+                        if r["name"] == v.get("replica")),
+                       key=lambda r: r.get("renewed") or 0,
+                       default={}).get("port")
+            if port:
+                _, info = http_json("GET",
+                                    f"http://127.0.0.1:{port}/jobs/{jid}")
+                v["metrics"] = info.get("metrics")
+            jobs.append(job_record(v))
+        markers = sorted(n for n in os.listdir(spool)
+                         if n.startswith("done.") and n.endswith(".json"))
+        rec.update(jobs=jobs, markers=markers)
+        attempts = log_attempts(os.path.join(spool, f"{victim}.log"))
+        rec["victim"]["attempts"] = [a["banner"] for a in attempts]
+        children = [pid for n in ("s0", "s1", "gateway")
+                    for _, pid in ups(n)[-1:]]
+        p.proc.send_signal(signal.SIGTERM)
+        t_term = time.time()
+        rc = p.wait(120)
+        rec["stop"] = {"rc": rc, "seconds": time.time() - t_term,
+                       "children_alive": [pid for pid in children
+                                          if os.path.exists(
+                                              f"/proc/{pid}")]}
+        for n in ("s0", "s1"):
+            last = log_attempts(os.path.join(spool, f"{n}.log"))[-1]
+            rec["stop"][n] = {"launches": last["launches"],
+                              "drained": "SIGTERM" in last["text"]}
+    finally:
+        p.close()
+    print(f"[chip_smoke] phase 13 (d) serve fleet: {json.dumps(rec)}",
+          flush=True)
+    bad = [j for j in rec["jobs"] if j["state"] != "done"
+           or j["md5"] != SCALE64_MD5 or not launched(
+               j["launches"], FLEET_KERNELS, ("banded_global",))]
+    if bad or rec["markers"] != sorted(f"done.{jid}.json" for jid in ids):
+        raise AssertionError(f"phase 13 (d) jobs: {bad or rec['markers']}")
+    if len(rec["victim"]["attempts"]) != 2 or \
+            "attempt 1" not in rec["victim"]["attempts"][1]:
+        raise AssertionError(f"phase 13 (d) relaunch: {rec['victim']}")
+    stop = rec["stop"]
+    if stop["rc"] != 0 or stop["children_alive"] or not all(
+            stop[n]["drained"] and stop[n]["launches"] is not None
+            for n in ("s0", "s1")):
+        raise AssertionError(f"phase 13 (d) stop: {stop}")
+    return rec
+
+
+def phase_supervisor(device):
+    """Phase 13, the supervisor on the card: (a) rank deaths restarted and
+    resumed, (b) stalled ranks killed at a ``--rank-stall-timeout`` sized
+    from (a)'s measured start-ups, (c) the elastic fleet with a killed
+    worker and a mid-run join, (d) the supervised serve fleet with a killed
+    replica relaunched; each on the SCALE64 BGZF BAM with its hole index,
+    each to the pinned md5."""
+    import math
+
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.io import bamindex
+    from ccsx_tpu_torch.utils import synth
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "supervisor")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    bam = os.path.join(WORK, "in64.bam")
+    if not os.path.exists(bam):
+        synth.make_big_bam(bam, SCALE64_HOLES, np.random.default_rng(42))
+    src = os.path.join(d, "in64.bam")
+    shutil.copy2(bam, src)
+    if cli.main(["--make-index", src, "ignored"]) != 0 or \
+            bamindex.load_index(src)["n_holes"] != SCALE64_HOLES:
+        raise AssertionError("phase 13: the scale corpus's index")
+    rec = {"deaths": shepherd_deaths(device, src, d)}
+    # the stall timeout: twice the slowest first launch's seconds from its
+    # launch to its first retirement (start-up plus the first sweep)
+    first = [r["first_retirement_s"] for r in rec["deaths"]["startups"]
+             if r["attempt"] == 0 and r["first_retirement_s"]]
+    if not first:
+        raise AssertionError(f"phase 13: no first retirement seen: "
+                             f"{rec['deaths']['startups']}")
+    timeout = math.ceil(2 * max(first))
+    rec["stall"] = shepherd_stall(device, src, d, timeout, first)
+    rec["fleet"] = shepherd_fleet(device, src, d)
+    rec["serve"] = shepherd_serve(device, src, d)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] phase 13 in {rec['phase_s']:.1f}s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3316,6 +3941,11 @@ def main(argv=None) -> int:
                     help="build, run the scale corpus once, then phase 12 "
                          "(the resident server and its replica fleet) "
                          "alone, printing its record")
+    ap.add_argument("--supervisor-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 13 "
+                         "(the supervisor: shepherd, the elastic fleet, "
+                         "the supervised serve fleet) alone, printing its "
+                         "record")
     ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
                     help="with --warmup-only: also two cold CLI processes "
                          "of each dispatch arm on a corpus of N holes")
@@ -3366,6 +3996,10 @@ def main(argv=None) -> int:
     if args.serve_only:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"serve": phase_serve("cuda")}))
+        return 0
+    if args.supervisor_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"supervisor": phase_supervisor("cuda")}))
         return 0
     if args.warmup_only:
         phase_scale64("cuda", INLINE)
@@ -3420,10 +4054,14 @@ def main(argv=None) -> int:
     planes = phase_host_planes("cuda", nstate, {
         arm: long_arms[arm]["seconds"] for arm in ("default", "screen")})
     warm = phase_warmup("cuda")
+    # the 2048-hole pair of phase 11 runs under --shards-only alone, which
+    # keeps the full script within its time with phase 13
     shards = phase_shards("cuda", (os.path.join(WORK, "rec_t1_trace.jsonl"),
                                    os.path.join(WORK,
-                                                "rec_t1_metrics.jsonl")))
+                                                "rec_t1_metrics.jsonl")),
+                          big_holes=0)
     served = phase_serve("cuda", warm["cold"]["medians"]["default"])
+    supervised = phase_supervisor("cuda")
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -3479,7 +4117,8 @@ def main(argv=None) -> int:
                       "host_planes": planes,
                       "warmup": warm,
                       "shards": shards,
-                      "serve": served}))
+                      "serve": served,
+                      "supervisor": supervised}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

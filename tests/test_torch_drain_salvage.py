@@ -256,6 +256,32 @@ def test_truncated_gzip_fails_fast_after_the_jax_clis_holes(ref, tmp_path,
     assert _final(m)["holes_in"] == jax["holes_in"] == 2
 
 
+def test_stream_error_past_the_first_window_writes_fixed_holes(
+        ref, tmp_path, capsys):
+    """With the prep pool, a stream error lets the driver write exactly the
+    holes more than the first window before it, whatever the threads'
+    timing: --inflight 1 and an ingest fault at the third hole write hole
+    100 and nothing after it, in every run, under a switch interval short
+    enough to shuffle the pool's four threads and the driver."""
+    want = _by_hole(ref["bytes"])["mv/100/ccs"].encode()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for k in range(3):
+            faultinject.disarm()
+            out, m = tmp_path / f"o{k}.fa", tmp_path / f"m{k}.jsonl"
+            rc = cli.main(["-A"] + PORT + [
+                "--batch", "on", "--prep-threads", "4", "--inflight", "1",
+                "--inject-faults", "ingest@3", "--metrics", str(m),
+                str(ref["paths"]["fa"]), str(out)])
+            assert rc == exitcodes.RC_FATAL
+            assert "invalid input stream" in capsys.readouterr().err
+            assert out.read_bytes() == b">" + want
+            assert _final(m)["holes_in"] == 2
+    finally:
+        sys.setswitchinterval(interval)
+
+
 def test_corrupt_holes_spend_failure_budget(ref, tmp_path):
     rc = cli.main(["-A"] + PORT + [
         "--batch", "on", "--salvage", "--max-failed-holes", "0",

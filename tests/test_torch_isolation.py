@@ -62,7 +62,8 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.parallel.distributed",
             "ccsx_tpu_torch.utils.lease", "ccsx_tpu_torch.pipeline.gateway",
             "ccsx_tpu_torch.pipeline.serve",
-            "ccsx_tpu_torch.pipeline.fleet"} <= set(mods)
+            "ccsx_tpu_torch.pipeline.fleet",
+            "ccsx_tpu_torch.pipeline.supervisor"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -340,13 +341,17 @@ COPIES = {
         {"_bind": "ccsx_align_scalar"}),
     "native/io.py": (set(), set(), set(), None),
     # the fatal-error hand-off: a device fault met by the pump or a worker
-    # is kept for the driver thread, never a quarantined hole
+    # is kept for the driver thread, never a quarantined hole; a stream
+    # error is raised by emit_ok at a fixed point of the emission order
+    # (the holes written before it do not depend on thread timing), not
+    # by the first poll/get that finds nothing prepped
     "pipeline/prep_pool.py": (
         {"_PairGate.__init__", "_PairGate._pump", "PrepPool.__init__",
-         "PrepPool._prep", "PrepPool.poll", "PrepPool.get"},
+         "PrepPool._ingest_one", "PrepPool._prep", "PrepPool.poll",
+         "PrepPool.get"},
         {"from ccsx_tpu.ops import cuda_ext", "PrepPool._keep_fatal",
-         "PrepPool._raise_fatal_locked"},
-        set(), None),
+         "PrepPool._raise_fatal_locked", "PrepPool.emit_ok"},
+        {"PrepPool._raise_ingest_error"}, None),
     # one capture worker and no settle time by default (a capture holds
     # the interpreter lock and costs milliseconds, not an XLA compile's
     # tens of seconds); the failure note says capture; promote, the
@@ -393,6 +398,14 @@ COPIES = {
          "from ccsx_tpu.utils.run_metrics import PORT_KEYS",
          "from ccsx_tpu.utils.run_metrics import RunMetrics"},
         set(), None),
+    # the supervisor: an empty runner prelude (the children take their
+    # device from their argv; nothing of JAX to pin), and shepherd_main's
+    # --rank-stall-timeout help (no --dispatch-deadline in the port yet)
+    # and -h (the port's CLI prints its USAGE, rc 1: it has no usage()).
+    # The runner and the message prefix differ only in the package name
+    # (test_supervisor_runner_names_the_ports_cli)
+    "pipeline/supervisor.py": (
+        {"default_prelude", "shepherd_main"}, set(), set(), None),
 }
 
 
@@ -411,6 +424,18 @@ def test_host_plane_copies_differ_only_where_listed(mod):
     if drop:
         raw = _top_level(ROOT / "ccsx_tpu" / mod)
         assert all(raw[k] != ref[k] for k in drop)
+
+
+def test_supervisor_runner_names_the_ports_cli():
+    """The children's runner is the JAX package's with the port's CLI in
+    place of the JAX CLI, and nothing else."""
+    from ccsx_tpu.pipeline import supervisor as jsupervisor
+
+    from ccsx_tpu_torch.pipeline import supervisor
+
+    assert supervisor._RUNNER == jsupervisor._RUNNER.replace(
+        "from ccsx_tpu.cli", "from ccsx_tpu_torch.cli")
+    assert "ccsx_tpu_torch.cli" in supervisor._RUNNER
 
 
 @pytest.mark.parametrize("name", ["count_raw_holes", "slice_raw_holes"])

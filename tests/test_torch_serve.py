@@ -530,12 +530,20 @@ def test_device_fault_stops_the_server_and_a_restart_resumes(
     fa3, ref3, _, _ = corpus
     real = batch.BatchExecutor.run
     fired = []
+    # the fault waits for the sibling's first refine sweep: a fault before
+    # the sibling's submit has pumped it (a starved test thread) would
+    # leave the sibling queued, never started
+    sibling_running = threading.Event()
 
     def run(self, reqs):
-        if threading.current_thread().name == "ccsx-job-j0001":
+        name = threading.current_thread().name
+        if name == "ccsx-job-j0001":
+            sibling_running.wait(120)
             fired.append(1)
             raise cuda_ext.KernelError("banded global fill: CUDA launch "
                                        "failed (injected)")
+        if name == "ccsx-job-j0002":
+            sibling_running.set()
         return real(self, reqs)
 
     monkeypatch.setattr(batch.BatchExecutor, "run", run)

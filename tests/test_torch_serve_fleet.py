@@ -330,10 +330,15 @@ def test_fleet_worker_flag_validation(tmp_path, capsys):
 def test_job_crosses_replicas_byte_identical(corpus, fleet_factory):
     """Submitted through replica A, whose scan never runs in the test's
     time: B leases the job from the shared spool and retires it with one
-    done marker, byte-identical to the JAX CLI."""
+    done marker, byte-identical to the JAX CLI.  A's first scan tick lies
+    past any run's length: a tick inside the run (30 s was, on a loaded
+    CPU) finds B's lease, held in this process under another name, late
+    whenever B's renewer was starved past the 1.2 s lease timeout, expires
+    it, and B leases the job again and runs it a second time beside the
+    first (the JAX package's scan does the same)."""
     fa3, ref3, _, _ = corpus
     spool, make = fleet_factory
-    a = make("A", poll_s=30.0)
+    a = make("A", poll_s=3600.0)
     make("B")
     h = a.submit(input_path=fa3, overrides={"prep_threads": 0})
     view = _wait_done(spool, h.id)
