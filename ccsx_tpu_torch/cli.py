@@ -10,7 +10,9 @@ and for its CPU backend; ``--pass-buckets`` switches the batched driver
 from packed slabs to the bucketed (Z, P) grouping.  The tuning knobs keep
 the JAX package's spellings, defaults and error messages, and so do the
 recording flags (``--metrics``, ``--trace``, ``--stall-timeout``,
-``--profile``), ``--max-failed-holes``, the crash-safety flags
+``--profile``), ``--max-failed-holes``, the resilience flags
+(``--dispatch-deadline``, ``--breaker-strikes``, ``--breaker-probe-s``),
+the crash-safety flags
 (``--journal``, ``--salvage``, ``--max-record-bytes``, ``--inject-faults``),
 ``--prep-threads`` (the batched driver's prep pool), ``--no-warmup``,
 ``--bam``, ``--telemetry-port``, the sharded-run flags (``--hosts``,
@@ -29,11 +31,14 @@ the card (PERF.md).
     python -m ccsx_tpu_torch.cli serve [serve options] [options]
     python -m ccsx_tpu_torch.cli gateway --spool DIR [options]
     python -m ccsx_tpu_torch.cli shepherd --hosts N [options] <INPUT> <OUTPUT>
+    python -m ccsx_tpu_torch.cli lint [--json] [paths]...
 
 The subcommands are dispatched before the run's arguments are parsed.
 ``stats``, ``blackbox``, ``top``, ``report`` and ``gateway`` load neither
 torch nor jax: they read a run's files or endpoints, or route a fleet's
-jobs, on a host whose card is wedged.  ``serve`` is the resident server
+jobs, on a host whose card is wedged.  ``lint`` (lint/) is the port's own
+static analysis over ``ccsx_tpu_torch/``, pure ``ast``, against
+``lint_baseline_torch.json``.  ``serve`` is the resident server
 (pipeline/serve.py): its own options, then the run's, which configure
 every job.
 
@@ -136,6 +141,24 @@ Port options (long):
                       step of each shape gets 10x this budget) [120]
 --profile <dir>       run under torch.profiler (CPU and CUDA activities)
                       and write its Chrome trace into this directory
+--dispatch-deadline <sec>
+                      bound every batched device step's dispatch and its
+                      device-to-host read: a call open past this deadline
+                      is abandoned (its thread parked, its result
+                      discarded) and its group replays per request on the
+                      per-hole path, on the same card; the run ends rc 0
+                      marked degraded.  The first call of each shape gets
+                      10x.  0 = off [0]
+--breaker-strikes <int>
+                      circuit breaker: this many device failures (hangs,
+                      OOM ladder bottoms) within 60 s trip it open, and
+                      the remaining groups run per request.  0 disables
+                      [3]
+--breaker-probe-s <sec>
+                      half-open re-probe interval of a tripped breaker:
+                      one group dispatches as a probe and its success
+                      closes it.  0 = stay open for the rest of the run
+                      [0]
 --max-failed-holes <V>
                       failure budget: an integer count (>= 0, checked per
                       failure) or a fraction of processed holes in (0, 1)
@@ -189,6 +212,8 @@ serve [opts]          resident multi-tenant server: HTTP job API (POST
                       SPOOL makes it one replica of a fleet; the run's
                       options after its own configure every job
 gateway --spool DIR   balancer over a serve fleet's spool (no torch)
+lint [--json] [paths] the port's static analysis over ccsx_tpu_torch/
+                      against lint_baseline_torch.json; rc 0 iff clean
 shepherd --hosts N [opts] <INPUT> <OUTPUT>
                       supervisor of a sharded run: launches the N ranks
                       as subprocesses (on the card unless --device cpu),
@@ -268,6 +293,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stall-timeout", type=float, default=120.0,
                    dest="stall_timeout", metavar="SEC")
     p.add_argument("--profile", default=None, metavar="DIR")
+    # resilient execution (pipeline/resilience.py)
+    p.add_argument("--dispatch-deadline", type=float, default=0.0,
+                   dest="dispatch_deadline", metavar="SEC",
+                   help="Bounded-wait device dispatch: abandon a call "
+                        "open past this deadline (thread parked, result "
+                        "discarded) and replay its group per request on "
+                        "the per-hole path; the first call of each shape "
+                        "gets 10x.  0 = off [0]")
+    p.add_argument("--breaker-strikes", type=int, default=None,
+                   dest="breaker_strikes", metavar="N",
+                   help="Circuit breaker: N device failures (hangs, OOM "
+                        "ladder-bottoms) within 60s trip it open — the "
+                        "remaining work runs per request.  0 disables [3]")
+    p.add_argument("--breaker-probe-s", type=float, default=None,
+                   dest="breaker_probe_s", metavar="SEC",
+                   help="Half-open re-probe interval for a tripped "
+                        "breaker: one group dispatches as a probe and "
+                        "success closes it.  0 = stay open for the rest "
+                        "of the run [0]")
     p.add_argument("--max-failed-holes", default=None,
                    dest="max_failed_holes", metavar="V")
     p.add_argument("--journal", default=None,
@@ -363,6 +407,20 @@ def config_from_args(args) -> CcsConfig:
         print(f"Error: --stall-timeout must be >= 0, got "
               f"{args.stall_timeout}", file=sys.stderr)
         raise SystemExit(1)
+    if args.dispatch_deadline < 0:
+        print(f"Error: --dispatch-deadline must be >= 0, got "
+              f"{args.dispatch_deadline}", file=sys.stderr)
+        raise SystemExit(1)
+    breaker_strikes = args.breaker_strikes
+    if breaker_strikes is not None and breaker_strikes < 0:
+        print(f"Error: --breaker-strikes must be >= 0, got "
+              f"{breaker_strikes}", file=sys.stderr)
+        raise SystemExit(1)
+    breaker_probe = args.breaker_probe_s
+    if breaker_probe is not None and breaker_probe < 0:
+        print(f"Error: --breaker-probe-s must be >= 0, got "
+              f"{breaker_probe}", file=sys.stderr)
+        raise SystemExit(1)
     max_failed = args.max_failed_holes
     if max_failed is not None:
         try:
@@ -408,6 +466,7 @@ def config_from_args(args) -> CcsConfig:
         metrics_path=args.metrics,
         trace_path=args.trace,
         stall_timeout_s=args.stall_timeout,
+        dispatch_deadline_s=args.dispatch_deadline,
         max_failed_holes=max_failed,
         salvage=args.salvage,
         telemetry_port=args.telemetry_port,
@@ -420,6 +479,10 @@ def config_from_args(args) -> CcsConfig:
         **({"seed_device_min_t": min_t} if min_t is not None else {}),
         **({"max_record_bytes": max_record_bytes}
            if max_record_bytes is not None else {}),
+        **({"breaker_strikes": breaker_strikes}
+           if breaker_strikes is not None else {}),
+        **({"breaker_probe_s": breaker_probe}
+           if breaker_probe is not None else {}),
     )
 
 
@@ -464,6 +527,11 @@ def main(argv: Optional[list] = None) -> int:
         from ccsx_tpu_torch.pipeline.gateway import gateway_main
 
         return gateway_main(argv[1:])
+    if argv and argv[0] == "lint":
+        # the port's static analysis (lint/): pure ast, no torch import
+        from ccsx_tpu_torch.lint.core import lint_main
+
+        return lint_main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.help:
         print(USAGE, end="")

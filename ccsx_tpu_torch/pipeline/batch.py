@@ -49,7 +49,14 @@ or a kernel wrapper refusing its tensors, ends the run
 quarantined; any other error replays each request of the group through the
 per-hole round on the same device (counted as ``failed_steps`` and
 ``host_fallbacks``, which the run reports even without -v), and a failure
-there quarantines that one hole.
+there quarantines that one hole.  The resilience plane
+(pipeline/resilience.py, one Resilience a run, shared by both executors)
+bounds each step's dispatch and its device-to-host read with
+``--dispatch-deadline``: an expired call is abandoned on its thread and
+its group replays per request (the ``hang`` class, booked as
+``device_hangs`` and the degraded mark); hangs and the OOM ladder's bottom
+strike the circuit breaker, and an open breaker sends whole groups to the
+per-request replay, which launches the same kernels eagerly.
 
 Recording (utils/trace.py, utils/metrics.py): the JAX package's spans at the
 JAX package's places, with its names and group keys — a device span around
@@ -87,6 +94,7 @@ from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
 from ccsx_tpu_torch.pipeline import graphs
 from ccsx_tpu_torch.pipeline import pack as pack_mod
+from ccsx_tpu_torch.pipeline import resilience as resil_mod
 from ccsx_tpu_torch.utils import faultinject, trace
 from ccsx_tpu_torch.utils.journal import Journal
 from ccsx_tpu_torch.utils.metrics import check_failure_budget
@@ -96,15 +104,21 @@ from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 # ---- failure taxonomy and recovery (shared by both executors) ------------
 
 def classify_failure(exc: BaseException) -> str:
-    """'oom' | 'fatal' | 'data' for an exception from a device step.
+    """'hang' | 'oom' | 'fatal' | 'data' for an exception from a device step.
 
-    'oom' (torch.cuda.OutOfMemoryError) is transient: the group is bisected
-    and retried.  'fatal' is a kernel that did not build or launch, a
-    wrapper that refused its tensors (cuda_ext.RefusedInputs), or a CUDA
-    runtime error (cuda_ext.is_device_fault): every later step would hit it
-    too, so the run ends.  'data' is a fault in the requests' own data:
-    each request is replayed on the per-hole path, so the blast radius is
-    one quarantined hole."""
+    'hang' is a dispatch deadline's expiry (resilience.DeadlineExpired):
+    the call was abandoned, so there is nothing to retry — a wedged card
+    would only burn another deadline — and the group goes straight to the
+    per-request replay (and strikes the circuit breaker).  'oom'
+    (torch.cuda.OutOfMemoryError) is transient: the group is bisected and
+    retried.  'fatal' is a kernel that did not build or launch, a wrapper
+    that refused its tensors (cuda_ext.RefusedInputs), or a CUDA runtime
+    error (cuda_ext.is_device_fault): every later step would hit it too, so
+    the run ends.  'data' is a fault in the requests' own data: each
+    request is replayed on the per-hole path, so the blast radius is one
+    quarantined hole."""
+    if isinstance(exc, resil_mod.DeadlineExpired):
+        return "hang"
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return "oom"
     if cuda_ext.is_device_fault(exc):
@@ -135,10 +149,19 @@ def _replay(i, host_one, results, **span_args) -> None:
 
 def _host_replay_all(idxs, host_one, results, metrics, group,
                      reason) -> None:
-    """The ladder bottom: replay each request on the per-hole path."""
+    """The ladder bottom, and an open breaker's route: replay each request
+    on the per-hole path."""
     for i in idxs:
         metrics.bump(host_fallbacks=1)
         _replay(i, host_one, results, group=group, reason=reason)
+
+
+def _bounded(resil, label_str, phase, fn):
+    """Deadline-bound ``fn`` through the run's Resilience (a plain call when
+    deadlines are off or no Resilience is wired)."""
+    if resil is None or not resil.enabled:
+        return fn()
+    return resil.call(fn, label_str, phase)
 
 
 def _out_shape_tag(out) -> str:
@@ -147,44 +170,61 @@ def _out_shape_tag(out) -> str:
     return "x".join(str(d) for d in out.shape)
 
 
-def _materialize(out, group: str, n: int) -> np.ndarray:
+def _materialize(out, group: str, n: int, resil=None) -> np.ndarray:
     """The device-to-host read of a step's output, in a watchdog-visible
     device span (attribute=False: a wait, never in the group table).  An
     untraced step's span closes once its launches are queued, so a hung
-    kernel surfaces here, where the host blocks."""
+    kernel surfaces here, where the host blocks; with a dispatch deadline
+    the wait itself is bounded (``resil``)."""
     with trace.device_span("materialize", group=group,
                            shape=_out_shape_tag(out), attribute=False, n=n):
-        return out.cpu().numpy()
+        return _bounded(resil, group, "materialize",
+                        lambda: out.cpu().numpy())
 
 
 def _run_group_sync(idxs, key, dispatch, finish, host_one, results, metrics,
-                    depth, max_resplits, backoff_s, label=str) -> None:
-    """Dispatch and finish one (sub)group, recovering from failures."""
+                    depth, max_resplits, backoff_s, label=str, resil=None,
+                    probe=False) -> None:
+    """Dispatch and finish one (sub)group, recovering from failures.
+    ``probe``: this group carries the breaker's half-open probe token — its
+    success or failure (and only its) settles the probe."""
     try:
-        out = dispatch(idxs, key)
-        finish(idxs, key, _materialize(out, label(key), len(idxs)))
+        out = _bounded(resil, label(key), "dispatch",
+                       lambda: dispatch(idxs, key))
+        finish(idxs, key, _materialize(out, label(key), len(idxs), resil))
+        if probe and resil is not None:
+            resil.breaker.probe_succeeded()
     except Exception as e:
         _recover_group(e, idxs, key, dispatch, finish, host_one, results,
-                       metrics, depth, max_resplits, backoff_s, label)
+                       metrics, depth, max_resplits, backoff_s, label,
+                       resil=resil, probe=probe)
 
 
 def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
                    metrics, depth, max_resplits, backoff_s,
-                   label=str) -> None:
+                   label=str, resil=None, probe=False) -> None:
     """The recovery ladder for one failed group.
 
-    fatal -> re-raised as cuda_ext.KernelError: the run ends
+    fatal -> re-raised as cuda_ext.KernelError: the run ends (no strike:
+             the breaker never routes around a kernel that cannot launch)
+    hang  -> (a dispatch deadline abandoned the call) no retry: books
+             device_hangs and the degraded mark, strikes the breaker, and
+             replays each request on the per-hole path
     oom   -> drop the refine programs (graphs.clear), then bisect idxs
              (each half re-packs into a smaller covering slab) with
              exponential backoff, at most max_resplits deep; the bottom
-             replays per request like 'data'
-    data  -> replay each request on the per-hole path
+             strikes the breaker and replays per request
+    data  -> replay each request on the per-hole path; never a strike (a
+             bad hole says nothing about the card), but the probe's token
+             is released when this group carried it
     """
     kind = classify_failure(exc)
     trace.instant("recover", cat="recover", kind=kind, group=label(key),
                   n=len(idxs), depth=depth)
     if kind == "fatal":
         raise _fatal(exc) from exc
+    if kind == "hang" and resil is not None:
+        resil.note_hang(label(key), exc, probe=probe)
     if kind == "oom":
         # the refine programs' graphs and pool, and the allocator's cache,
         # before anything is retried
@@ -199,8 +239,14 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
         for part in (idxs[:mid], idxs[mid:]):
             _run_group_sync(part, key, dispatch, finish, host_one, results,
                             metrics, depth + 1, max_resplits, backoff_s,
-                            label)
+                            label, resil=resil, probe=probe)
         return
+    if kind == "oom" and resil is not None:
+        # the bottom of the ladder (depth cap or a single request): a
+        # strike against the card, unlike a recoverable resplit
+        resil.breaker.strike("oom", label(key), probe=probe)
+    if kind == "data" and resil is not None and probe:
+        resil.breaker.settle_probe()
     metrics.bump(failed_steps=1)
     print(f"[ccsx-tpu-torch] device step failed ({kind}) for a "
           f"{len(idxs)}-request group {key}; replaying per request: {exc}",
@@ -210,27 +256,51 @@ def _recover_group(exc, idxs, key, dispatch, finish, host_one, results,
 
 def _run_groups_recovering(groups, dispatch, finish, host_one, results,
                            metrics, max_resplits=3, backoff_s=0.05,
-                           label=str) -> None:
+                           label=str, resil=None) -> None:
     """Dispatch every group's device work before finishing any (launches
     are asynchronous, so one group's device work overlaps the previous
     group's host side); a failure at either phase drops that one group
     into the recovery ladder.  ``label`` maps a group key to its trace
-    group (the dispatch span's, without a slab ordinal)."""
+    group (the dispatch span's, without a slab ordinal).
+
+    Resilience (pipeline/resilience.py, ``resil``): an OPEN circuit
+    breaker routes whole groups to the per-request replay without a
+    batched step (one probe group per --breaker-probe-s when half-open);
+    a --dispatch-deadline bounds both the dispatch and the materialize
+    wait, abandoning a wedged call into the ladder's ``hang`` class."""
+    _OPEN = object()   # the breaker refused this group's dispatch
     pending = []
     for key, idxs in groups.items():
+        mode = resil.admit() if resil is not None else "closed"
+        if mode == "host":
+            pending.append((idxs, key, _OPEN, None, False))
+            continue
+        probe = mode == "probe"
         try:
-            pending.append((idxs, key, None, dispatch(idxs, key)))
+            out = _bounded(resil, label(key), "dispatch",
+                           lambda k=key, i=idxs: dispatch(i, k))
+            pending.append((idxs, key, None, out, probe))
         except Exception as e:
-            pending.append((idxs, key, e, None))
-    for idxs, key, exc, out in pending:
+            pending.append((idxs, key, e, None, probe))
+    for idxs, key, exc, out, probe in pending:
+        if exc is _OPEN:
+            trace.instant("recover", cat="recover", kind="breaker_open",
+                          group=label(key), n=len(idxs))
+            _host_replay_all(idxs, host_one, results, metrics, label(key),
+                             "breaker_open")
+            continue
         try:
             if exc is not None:
                 raise exc
-            finish(idxs, key, _materialize(out, label(key), len(idxs)))
+            finish(idxs, key, _materialize(out, label(key), len(idxs),
+                                           resil))
+            # only THE probe's own completion settles the breaker
+            if probe and resil is not None:
+                resil.breaker.probe_succeeded()
         except Exception as e:
             _recover_group(e, idxs, key, dispatch, finish, host_one,
                            results, metrics, 0, max_resplits, backoff_s,
-                           label)
+                           label, resil=resil, probe=probe)
 
 
 def _fused_tmax(tlen: int, quant: int) -> int:
@@ -693,11 +763,15 @@ class PairExecutor:
 
     def __init__(self, params: AlignParams, quant: int = 512,
                  device="cuda", metrics: Optional[RunMetrics] = None,
-                 prefilter: bool = True, seed_device_min_t: int = 16384):
+                 prefilter: bool = True, seed_device_min_t: int = 16384,
+                 resil=None):
         self.params = params
         self.quant = quant
         self.device = torch.device(device)
         self.metrics = metrics if metrics is not None else RunMetrics()
+        # the run's Resilience (pipeline/resilience.py), shared with the
+        # BatchExecutor: pair fills strike the refine steps' breaker
+        self._resil = resil
         self.prefilter = bool(prefilter)
         self.seed_device_min_t = max(0, int(seed_device_min_t))
         # the device screen's floor; below it the rules ride the seed
@@ -815,7 +889,8 @@ class PairExecutor:
 
         self.metrics.bump(device_dispatches=len(groups))
         _run_groups_recovering(groups, dispatch, finish, host_one, triples,
-                               self.metrics, label=label)
+                               self.metrics, label=label,
+                               resil=self._resil)
         rejected = 0
         for i in idxs:
             tr = triples[i]
@@ -862,7 +937,8 @@ class PairExecutor:
 
         self.metrics.bump(device_dispatches=len(groups))
         _run_groups_recovering(groups, dispatch, finish, host_one, rows,
-                               self.metrics, label=label)
+                               self.metrics, label=label,
+                               resil=self._resil)
         for i in idxs:
             r = rows[i]
             if isinstance(r, Exception):
@@ -992,7 +1068,8 @@ class PairExecutor:
             return self._host_aligner.strand_match(pr.q, pr.t, pr.pct)
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
-                               self.metrics, label=label)
+                               self.metrics, label=label,
+                               resil=self._resil)
         return results
 
 
@@ -1032,10 +1109,14 @@ class BatchExecutor:
     oom_backoff_s = 0.05
 
     def __init__(self, cfg: CcsConfig, device="cuda",
-                 metrics: Optional[RunMetrics] = None, warmup=None):
+                 metrics: Optional[RunMetrics] = None, warmup=None,
+                 resil=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = metrics if metrics is not None else RunMetrics()
+        # the run's Resilience (pipeline/resilience.py): the dispatch
+        # deadline and the circuit breaker; None = neither
+        self._resil = resil
         self.len_quant = cfg.len_bucket_quant
         # the JAX package's arm name, for the trace groups' :b<impl> and
         # banded_dispatches, so both packages' group tables line up:
@@ -1236,7 +1317,7 @@ class BatchExecutor:
         warmup=True span carries the dispatch span's group and shape, so
         it books the shape's one compile and the first real dispatch books
         as execute."""
-        with trace.device_span(
+        with trace.device_span(  # lint: ok[span-force] warm() synchronises
                 "warmup", group=f"packed:q{qmax}:t{tmax}:i{iters}"
                                 f":b{self.bimpl}",
                 shape=f"R{R}:S{H}", warmup=True):
@@ -1368,7 +1449,7 @@ class BatchExecutor:
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
                                self.metrics, self.max_oom_resplits,
-                               self.oom_backoff_s, label)
+                               self.oom_backoff_s, label, resil=self._resil)
         return results
 
     def _run_refine(self, requests: List[RefineRequest]) -> list:
@@ -1434,7 +1515,7 @@ class BatchExecutor:
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
                                self.metrics, self.max_oom_resplits,
-                               self.oom_backoff_s, label)
+                               self.oom_backoff_s, label, resil=self._resil)
         return results
 
     def _run_refine_packed(self, requests: List[RefineRequest]) -> list:
@@ -1530,7 +1611,7 @@ class BatchExecutor:
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
                                self.metrics, self.max_oom_resplits,
-                               self.oom_backoff_s, label)
+                               self.oom_backoff_s, label, resil=self._resil)
         return results
 
 
@@ -1675,11 +1756,17 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         from ccsx_tpu_torch.pipeline.warmup import WarmupCompiler
 
         warm = WarmupCompiler()
-    executor = BatchExecutor(cfg, device, metrics, warmup=warm)
+    # one dispatch deadline and circuit breaker (pipeline/resilience.py)
+    # for both executors and the prep pool's pump, so pair fills and
+    # refine steps strike one breaker; a served job builds its own from its
+    # config, so a tenant that wedges the card trips only its own
+    resil = resil_mod.Resilience(cfg, metrics=metrics)
+    executor = BatchExecutor(cfg, device, metrics, warmup=warm, resil=resil)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
                                  device=device, metrics=metrics,
                                  prefilter=cfg.prefilter,
-                                 seed_device_min_t=cfg.seed_device_min_t)
+                                 seed_device_min_t=cfg.seed_device_min_t,
+                                 resil=resil)
 
     def warm_hole(h) -> None:
         if warm is not None and isinstance(h.req, RefineRequest):

@@ -39,21 +39,21 @@ one server, one port):
 
 **Per-job fault domains under shared capacity.**  Each job gets its own
 journal, its own Metrics (labeled ``job=<id>``), its own failure budget
-and corruption accounting, its own drain guard (utils/drain.FlagGuard —
-cancel, deadline and server drain all route through the driver's rc-75
-drain path) and its own fault-injection scope (utils/faultinject.
-scope_arm).  What jobs SHARE is capacity: the FairWindow below splits the
-device admission window (cfg.zmw_microbatch slots) fairly, and the
-window-size invariance of the batched driver's output is what makes fair
-sharing safe for byte identity.  A device OOM stays in its job's resplit
-ladder (it drops every job's refine programs; the other jobs rebuild
-theirs).
+and corruption accounting, its own Resilience (pipeline/resilience.py,
+built from the job's config in the batched driver: its
+``dispatch_deadline_s`` and ``breaker_strikes`` overrides apply to it
+alone, so a job whose device step hangs is degraded and replayed per
+request without touching its siblings), its own drain guard
+(utils/drain.FlagGuard — cancel, deadline and server drain all route
+through the driver's rc-75 drain path) and its own fault-injection scope
+(utils/faultinject.scope_arm).  What jobs SHARE is capacity: the
+FairWindow below splits the device admission window (cfg.zmw_microbatch
+slots) fairly, and the window-size invariance of the batched driver's
+output is what makes fair sharing safe for byte identity.  A device OOM
+stays in its job's resplit ladder (it drops every job's refine programs;
+the other jobs rebuild theirs).
 
-**Where the port differs.**  The JAX server gives each job its own
-Resilience (a dispatch deadline and a circuit breaker that move a wedged
-job to a host rung); this package has no resilience plane and no host
-rung, so the ``dispatch_deadline_s`` and ``breaker_strikes`` overrides are
-refused (HTTP 400).  A fault of the card or of a kernel
+**Where the port differs.**  A fault of the card or of a kernel
 (cuda_ext.is_device_fault) is sticky — it may leave the CUDA context
 unusable for every job — so it STOPS the server: ``/readyz`` answers 503
 ``device_fault``, no further job starts, every running job drains (its
@@ -127,9 +127,6 @@ _CFG_OVERRIDES = {
 }
 # job-level (non-cfg) override keys
 _JOB_OVERRIDES = ("format", "output", "deadline_s", "faults", "inflight")
-# the JAX server's per-job resilience overrides: this package has no
-# resilience plane, so they would be silent no-ops — refused instead
-_REFUSED_OVERRIDES = ("dispatch_deadline_s", "breaker_strikes")
 
 
 def _truthy(v) -> bool:
@@ -562,12 +559,6 @@ class ServeCore:
 
     def _build_job(self, jid: str, input_path: str,
                    overrides: dict) -> Job:
-        refused = [k for k in _REFUSED_OVERRIDES if k in overrides]
-        if refused:
-            raise ValueError(
-                f"job option(s) {refused} need the resilience plane "
-                "(dispatch deadline, circuit breaker), which this package "
-                "does not have yet")
         cfg_kw = {}
         for key, (field, coerce) in _CFG_OVERRIDES.items():
             if key in overrides and overrides[key] is not None:

@@ -31,7 +31,10 @@ supervised loop:
   dead.  The beat starts at launch and the first journal write comes
   after the child's start-up (torch, the CUDA context, the kernels'
   load) and its first retirement, so size the timeout above both
-  (PERF.md gives them as measured on the H100).
+  (PERF.md gives them as measured on the H100).  It is also the answer
+  to a kernel that never ends: a rank's own ``--dispatch-deadline``
+  abandons the wait, but the replay queues behind the kernel on the
+  card (pipeline/resilience.py).
 
 * **Restart** — a dead rank (nonzero exit, or killed as stalled) is
   relaunched with exponential backoff (``--rank-backoff`` x 2^attempt)
@@ -996,9 +999,10 @@ def shepherd_main(argv) -> int:
                         "heartbeat (shard journal/output mtimes) goes "
                         "stale this long; 0 disables — size it above "
                         "a rank's start-up (torch, the CUDA context, "
-                        "the kernels' load) plus its first retirement; "
-                        "the port has no rank-level --dispatch-deadline "
-                        "yet [0]")
+                        "the kernels' load) plus its first retirement, "
+                        "or prefer the rank-level --dispatch-deadline; "
+                        "only this timeout ends a kernel that never "
+                        "does [0]")
     p.add_argument("--fleet-ranges", type=int, default=0,
                    dest="fleet_ranges", metavar="M",
                    help="elastic fleet mode: split the input into M "

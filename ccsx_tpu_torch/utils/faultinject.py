@@ -33,11 +33,13 @@ JAX package's):
               (utils/trace.py, --stall-timeout) fires and dumps; the
               step then completes normally
   device_hang sleep CCSX_FAULT_HANG_S seconds (default 3600) inside a
-              device step.  This package has no dispatch deadline (the
-              JAX package's pipeline/resilience.py is not ported), so it
-              behaves as the JAX package's does with deadlines off: the
-              run stalls, the watchdog dumps (never kills), and the run
-              completes when the sleep ends
+              device step — a permanent wedge at test scale.  Only the
+              dispatch deadline (--dispatch-deadline,
+              pipeline/resilience.py) rescues the run: the call is
+              abandoned and its group replays per request on the
+              per-hole path; with deadlines off the run stalls, the
+              watchdog dumps (never kills), and the run completes when
+              the sleep ends
   rank_death  hard process exit (os._exit) at a hole-retirement point
               in the batched driver — models a rank dying mid-run
               (SIGKILL/OOM-killer) and leaving a valid journal behind
@@ -267,8 +269,8 @@ def fire(point: str) -> None:
         # a hang, not a failure: sleep with the dispatch span open.
         # `stall` is transient (the dispatch then completes — proves
         # the watchdog fires); `device_hang` is effectively permanent
-        # at its default of 1 h (with no dispatch deadline, the run
-        # waits it out, as the JAX package's does with deadlines off)
+        # at its default of 1 h (the dispatch deadline abandons it; the
+        # parked thread is daemonic and dies with the process)
         import time
 
         env, dflt = (("CCSX_FAULT_STALL_S", 1.0) if point == "stall"

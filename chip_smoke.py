@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--parent-walk SRC] [--parent-rotband SRC ...]
                           [--kernels-only | --host-planes-only |
                            --warmup-only [--cold-holes N] | --shards-only |
-                           --serve-only | --supervisor-only]
+                           --serve-only | --supervisor-only |
+                           --resilience-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -130,11 +131,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    and eager arms (eager: ``graphs.CAPTURE_AT`` past every shape, on a
    program cache of its own), alternating, five untraced ``--metrics``
    runs each (quartiles of the wall, ``compute_s`` and the
-   ``refine_packed`` spans); two cold CLI processes of each dispatch arm
-   (the default, ``--warmup``, eager and a capture at each shape's first
-   dispatch), alternating, with the slabs each shape got.
-   ``--warmup-only`` runs this phase alone with three cold processes an
-   arm, and ``--cold-holes N`` adds two an arm on a corpus of N holes;
+   ``refine_packed`` spans).  ``--warmup-only`` runs this phase alone and
+   adds three cold CLI processes of each dispatch arm (the default,
+   ``--warmup``, eager and a capture at each shape's first dispatch),
+   alternating, with the slabs each shape got, and ``--cold-holes N`` two
+   an arm on a corpus of N holes (the full script leaves them out);
 11. the run seen and split from outside: the scale corpus's BGZF hole
    index (``--make-index``, 64 holes); two ranks at once (``--hosts 2``,
    each a CLI process on the one card, the kernels built once before) in
@@ -207,7 +208,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    and never the band-local one; SIGTERM to the shepherd drains every
    child and it exits 0.  Walls, start-ups, death to relaunch and
    relaunch to ready are reported, not gated.  ``--supervisor-only`` runs
-   this phase alone after one scale run.
+   this phase alone after one scale run;
+14. the resilience plane (pipeline/resilience.py), on the scale corpus
+   under inline prep: (a) two CLI processes under ``--dispatch-deadline
+   2 --inject-faults device_hang@1`` with ``CCSX_FAULT_HANG_S`` past the
+   phase, the default arm and ``--banded-impl rotband``: rc 0, the md5,
+   ``device_hangs`` >= 1, degraded, ``host_fallbacks`` >= 1, a wall far
+   under the hang, and the arm's three kernels launched (by the
+   per-request replay and the other steps) and never the other arm's
+   global fill; (b) ``--inject-faults device_oom@1+ --breaker-strikes 2``:
+   the md5, ``breaker_trips`` >= 1, the breaker ``open``, the kernels
+   launched by the replays alone; then with ``--breaker-probe-s 0.2`` and
+   a hook of this script that stops the faults when the probe is due: a
+   probe, the breaker ``closed``, the md5 (the four processes at once);
+   (c) in this process, in phase 10's eager arm (no refine program built)
+   after one warm-up run, the first eager refine dispatch queues a
+   ``torch.cuda._sleep`` of about 3 s (calibrated with CUDA events) ahead
+   of its work under ``--dispatch-deadline 1`` and a grace of 1, with
+   ``--inflight 1`` (the spun group alone in its sweep): the materialize
+   wait is abandoned, the replay finishes behind the spin with the md5,
+   ``device_hangs`` 1, and the abandoned thread ends once the spin does;
+   then the same at the adaptive window, where a later dispatch of the
+   spun sweep may wait behind the spin too (at least one expiry); a
+   process that exits (``sys.exit``, then ``os._exit``) while a daemon
+   thread waits in a copy queued behind a 6 s spin, with the seconds its
+   exit takes; (d) one ``serve`` process
+   with two SCALE64 jobs at once, one with ``{"faults": "device_hang@1",
+   "dispatch_deadline_s": 1.5}``: both to the md5, the hang booked in that
+   job alone, the server ready, SIGTERM rc 0 with the abandoned call still
+   parked; (e) the scale corpus in process with deadlines off and at 60 s,
+   alternating, seven runs each: walls and the host ms of each bounded
+   call (quartiles, not gated), and the refine programs' pins equal in
+   both arms.  ``--resilience-only`` runs this phase alone after one scale
+   run.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -1601,14 +1634,16 @@ CRASH_KERNELS = ("banded_global", "banded_local", "traceback_walk")
 CRASH_AT = 20
 
 
-def crash_cli(argv, env_extra=None, timeout=300, verbose=True):
+def crash_cli(argv, env_extra=None, timeout=300, verbose=True,
+              runner=CRASH_RUNNER):
     """The port's CLI on ``argv`` (under -v, unless ``verbose`` is False) in
-    a subprocess; returns rc, seconds, stderr, the launch counts and the
-    final metrics snapshot (None after a hard exit or without -v)."""
+    a subprocess (``runner``'s code); returns rc, seconds, stderr, the
+    launch counts and the final metrics snapshot (None after a hard exit or
+    without -v)."""
     env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
     env.pop("CCSX_FAULTS", None)
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", CRASH_RUNNER,
+    r = subprocess.run([sys.executable, "-c", runner,
                         *(["-v"] if verbose else []), *argv],
                        cwd=HERE, env=env, capture_output=True, text=True,
                        timeout=timeout)
@@ -2486,7 +2521,8 @@ def phase_warmup(device, runs=5, cold=2, big_holes=0):
                   for k, (a, b, c) in v.items()), flush=True)
 
     procs = cold_processes(device, os.path.join(WORK, "in64.bam"),
-                           list(ARMS), cold, "scale64", SCALE64_MD5)
+                           list(ARMS), cold, "scale64",
+                           SCALE64_MD5) if cold else None
     rec = {"traced": traced, "pinned": pinned, "step_ab": ab,
            "walls": walls, "walls_quartiles": summary, "cold": procs}
     if big_holes:
@@ -3909,6 +3945,407 @@ def phase_supervisor(device):
     return rec
 
 
+# ---- phase 14: the resilience plane ------------------------------------
+
+# the injected hang of (a) and (d): far past every run of the phase, so the
+# abandoned calls never wake inside it (no late launches in the counts)
+RESIL_HANG_S = "600"
+# (b)'s second run: the card "heals" when the half-open probe is due (a
+# hook of this script alone: the schedule device_oom@1+ stops at the first
+# probe), so the probe's success closes the breaker
+PROBE_HEALS = """
+from ccsx_tpu_torch.pipeline import resilience as _resil
+from ccsx_tpu_torch.utils import faultinject as _fi
+_admit = _resil.CircuitBreaker.admit
+def _heal_at_probe(self):
+    mode = _admit(self)
+    if mode == "probe":
+        _fi.disarm()
+    return mode
+_resil.CircuitBreaker.admit = _heal_at_probe
+"""
+# a process that exits while a daemon thread waits for a spinning kernel
+# (argv[1]: the spin's cycles, argv[2]: "exit" or "os_exit"); it prints the
+# moment it starts to exit
+EXIT_PARKED = """
+import os, sys, threading, time
+import torch
+x = torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+torch.cuda._sleep(int(sys.argv[1]))
+y = x + 1
+parked = threading.Event()
+def wait():
+    parked.set()
+    y.cpu()
+threading.Thread(target=wait, daemon=True).start()
+parked.wait()
+time.sleep(0.2)
+print("exiting", time.time(), flush=True)
+if sys.argv[2] == "os_exit":
+    os._exit(0)
+"""
+
+
+def spin_cycles(seconds):
+    """The cycles of ``torch.cuda._sleep`` that spin about ``seconds`` on
+    this card (timed with CUDA events on a 2e7-cycle probe)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    probe = int(2e7)
+    a.record()
+    torch.cuda._sleep(probe)
+    b.record()
+    torch.cuda.synchronize()
+    return int(probe * seconds * 1e3 / a.elapsed_time(b))
+
+
+def _resil_final(r):
+    f = r["final"] or {}
+    return {k: f.get(k) for k in (
+        "device_hangs", "degraded", "host_fallbacks", "failed_steps",
+        "breaker_trips", "breaker_probes", "breaker_state", "oom_resplits",
+        "holes_out", "holes_failed")}
+
+
+def resilience_cli(device, name, extra, env=None, runner=None):
+    """One CLI process of phase 14 on the scale corpus under inline prep:
+    rc, wall, md5, its launches and the resilience counters of its final
+    snapshot."""
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, f"resil_{name}.fa")
+    if os.path.exists(out):
+        os.remove(out)
+    r = crash_cli(["--device", device, *INLINE, *extra, bam, out], env,
+                  runner=runner or CRASH_RUNNER)
+    data = open(out, "rb").read() if os.path.exists(out) else b""
+    rec = {"name": name, "argv": extra, "rc": r["rc"],
+           "seconds": r["seconds"], "md5": _md5(data),
+           "launches": r["launches"], **_resil_final(r)}
+    print(f"[chip_smoke] phase 14 {name}: {json.dumps(rec)}", flush=True)
+    if "Traceback" in r["stderr"]:
+        rec["traceback"] = r["stderr"][-3000:]
+    return rec
+
+
+def _launched(n, want, absent=()):
+    n = n or {}
+    return all(n.get(k, 0) > 0 for k in want) and not any(
+        n.get(k, 0) for k in absent)
+
+
+def check_resil(rec, problems, want, absent=(), **conds):
+    """Append what ``rec`` (resilience_cli's) breaks: rc 0, the md5, no
+    traceback, its launches through ``want`` and never ``absent``, and each
+    ``conds`` entry (a counter's name -> a predicate)."""
+    name = rec["name"]
+    if rec["rc"] != 0 or rec["md5"] != SCALE64_MD5 or "traceback" in rec:
+        problems.append(f"{name}: rc {rec['rc']}, md5 {rec['md5']}, "
+                        f"{rec.get('traceback', '')}")
+    if not _launched(rec["launches"], want, absent):
+        problems.append(f"{name}: launches {rec['launches']}")
+    for k, ok in conds.items():
+        if not ok(rec.get(k)):
+            problems.append(f"{name}: {k} {rec.get(k)!r}")
+
+
+def resil_processes(device):
+    """(a) and (b): four CLI processes, at once — the injected permanent
+    hang under both global-fill arms, the tripped breaker, and the tripped
+    breaker healed by its probe."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    hang = {"CCSX_FAULT_HANG_S": RESIL_HANG_S}
+    jobs = [
+        ("hang", ["--dispatch-deadline", "2", "--inject-faults",
+                  "device_hang@1"], hang, None),
+        ("hang_rotband", ["--dispatch-deadline", "2", "--inject-faults",
+                          "device_hang@1", "--banded-impl", "rotband"],
+         hang, None),
+        ("breaker", ["--breaker-strikes", "2", "--inject-faults",
+                     "device_oom@1+"], None, None),
+        ("breaker_probe", ["--breaker-strikes", "2", "--breaker-probe-s",
+                           "0.2", "--inject-faults", "device_oom@1+"],
+         None, PROBE_HEALS + CRASH_RUNNER),
+    ]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        recs = list(ex.map(lambda j: resilience_cli(device, *j), jobs))
+    return dict(zip((j[0] for j in jobs), recs))
+
+
+def spun_dispatch(device, extra=(), hangs=1, seconds=3.0, deadline=1.0):
+    """(c): a real kernel past its deadline.  In this process, in phase
+    10's eager arm (graphs.CAPTURE_AT past every shape, a program cache of
+    its own: every refine dispatch eager, so no dispatch builds a program
+    behind the spin) after one warm-up run of that arm with ``extra``, the
+    first eager refine dispatch queues a ``torch.cuda._sleep`` of about
+    ``seconds`` ahead of its work (a hook of this script), under
+    ``--dispatch-deadline deadline`` and a grace of 1: the materialize wait
+    is abandoned at the deadline, and the group's per-request replay,
+    queued behind the spin on the same card, finishes once it ends, with
+    the md5.  ``hangs``: the expiries the run must book (None: at least
+    one)."""
+    import threading
+
+    import torch
+
+    from ccsx_tpu_torch import cli
+    from ccsx_tpu_torch.ops import cuda_ext
+    from ccsx_tpu_torch.pipeline import graphs
+
+    cycles = spin_cycles(seconds)
+    real = graphs._run_eager
+    spun = []
+
+    def run_eager(key, seen, dev, host):
+        if not spun:
+            spun.append((threading.current_thread().name,
+                         time.perf_counter()))
+            torch.cuda._sleep(cycles)
+        return real(key, seen, dev, host)
+
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, "resil_spun.fa")
+    m = os.path.join(WORK, "resil_spun_metrics.jsonl")
+    for f in (out, m):
+        if os.path.exists(f):
+            os.remove(f)
+    old = os.environ.get("CCSX_DEADLINE_GRACE")
+    with dispatch_arm(EAGER):
+        warm_s = phase_scale64(device, [*INLINE, *extra])[0]
+        os.environ["CCSX_DEADLINE_GRACE"] = "1"
+        graphs._run_eager = run_eager
+        cuda_ext.reset_counts()
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["--device", device, *INLINE, *extra,
+                           "--dispatch-deadline", str(deadline),
+                           "--metrics", m, bam, out])
+            wall = time.perf_counter() - t0
+        finally:
+            graphs._run_eager = real
+            if old is None:
+                os.environ.pop("CCSX_DEADLINE_GRACE", None)
+            else:
+                os.environ["CCSX_DEADLINE_GRACE"] = old
+    counts = dict(cuda_ext.LAUNCHES)
+    t1 = time.perf_counter()
+    for t in threading.enumerate():
+        if t.name.startswith("ccsx-bounded-"):
+            t.join(60)
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("ccsx-bounded-")]
+    fin = [e for e in read_jsonl(m) if e["event"] == "final"][0]
+    rec = {"argv": list(extra), "spin_s": seconds, "deadline_s": deadline,
+           "rc": rc,
+           "wall_s": wall, "eager_arm_warm_s": warm_s,
+           "spin_thread": spun[0][0] if spun else None,
+           "spin_queued_at_s": spun[0][1] - t0 if spun else None,
+           "md5": _md5(open(out, "rb").read()) if rc == 0 else None,
+           "launches": counts, "abandoned_joined_s": time.perf_counter() - t1,
+           "threads_left": left,
+           **{k: fin.get(k) for k in ("device_hangs", "host_fallbacks",
+                                      "failed_steps", "degraded")}}
+    print(f"[chip_smoke] phase 14 (c) a spinning kernel past its deadline: "
+          f"{json.dumps(rec)}", flush=True)
+    problems = []
+    if rc != 0 or rec["md5"] != SCALE64_MD5:
+        problems.append(f"rc {rc}, md5 {rec['md5']}")
+    if rec["spin_thread"] != "ccsx-bounded-dispatch":
+        problems.append(f"the spin was queued on {rec['spin_thread']}")
+    if (rec["device_hangs"] or 0) < 1 or not rec["host_fallbacks"] or (
+            hangs is not None and rec["device_hangs"] != hangs):
+        problems.append(f"device_hangs {rec['device_hangs']}, host_fallbacks "
+                        f"{rec['host_fallbacks']}")
+    if not rec["spin_queued_at_s"] or \
+            wall < rec["spin_queued_at_s"] + 0.9 * seconds:
+        problems.append(f"the run ended before the spin could: {wall:.3f}s")
+    if left or not _launched(counts, CRASH_KERNELS):
+        problems.append(f"threads left {left}, launches {counts}")
+    if problems:
+        raise AssertionError(f"phase 14 (c): {problems}")
+    return rec
+
+
+def exit_parked(seconds=6.0):
+    """A process exiting (sys.exit, then os._exit) while a daemon thread
+    waits in a device-to-host copy queued behind a kernel that spins
+    ``seconds``: the seconds from its start of exit to its end."""
+    cycles = spin_cycles(seconds)
+    rec = {"spin_s": seconds}
+    for how in ("exit", "os_exit"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", EXIT_PARKED, str(cycles),
+                            how], cwd=HERE, capture_output=True, text=True,
+                           timeout=300, env=dict(os.environ,
+                                                 PYTHONPATH=HERE))
+        t_end = time.time()
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("exiting ")]
+        rec[how] = {"rc": r.returncode, "process_s": time.perf_counter() - t0,
+                    "exit_s": (t_end - float(lines[0].split()[1])
+                               if lines else None)}
+    print(f"[chip_smoke] phase 14 (c) exit with a thread parked in a CUDA "
+          f"wait: {json.dumps(rec)}", flush=True)
+    for how in ("exit", "os_exit"):
+        if rec[how]["rc"] != 0 or rec[how]["exit_s"] is None:
+            raise AssertionError(f"phase 14 (c) exit: {rec}")
+    return rec
+
+
+def served_hang(device):
+    """(d): one ``serve`` process, two SCALE64 jobs at once, one with
+    ``{"faults": "device_hang@1", "dispatch_deadline_s": 1.5}``: both to the
+    md5, the hang and its replays booked in that job alone, its own
+    launches through the three kernels, the server ready throughout and
+    drained to rc 0 with the abandoned call still parked."""
+    d = os.path.join(WORK, "resil_serve")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    bam = os.path.join(WORK, "in64.bam")
+    s64 = dict(SERVE_JOB, input=bam)
+    argv = ["serve", "--port", str(free_ports(1)), "--spool",
+            os.path.join(d, "spool"), "--max-active", "2", "--device",
+            device, *SERVE_FLAGS]
+    srv = ServeProc(argv, os.path.join(d, "serve.log"),
+                    {"CCSX_FAULT_HANG_S": RESIL_HANG_S})
+    try:
+        ready = srv.wait_ready()
+        infos = serve_wave(srv.base, [
+            dict(s64, faults="device_hang@1", dispatch_deadline_s=1.5), s64])
+        code, _ = http_json("GET", srv.base + "/readyz")
+        t0 = time.perf_counter()
+        rc = srv.stop("SIGTERM")
+        stop_s = time.perf_counter() - t0
+    finally:
+        srv.close()
+    jobs = []
+    for info in infos:
+        m = info.get("metrics") or {}
+        jobs.append({**job_record(info), **{k: m.get(k) for k in (
+            "device_hangs", "host_fallbacks", "degraded")}})
+    rec = {"start_to_ready_s": ready, "jobs": jobs, "readyz_after": code,
+           "sigterm_rc": rc, "sigterm_to_exit_s": stop_s}
+    print(f"[chip_smoke] phase 14 (d) served jobs: {json.dumps(rec)}",
+          flush=True)
+    bad, good = jobs
+    problems = []
+    for j in jobs:
+        if j["state"] != "done" or j["md5"] != SCALE64_MD5 or \
+                not _launched(j["launches"], SERVE_KERNELS):
+            problems.append(f"{j['id']}: {j['state']} {j['md5']} "
+                            f"{j['launches']}")
+    if not (bad["device_hangs"] or 0) >= 1 or not bad["host_fallbacks"] \
+            or not bad["degraded"]:
+        problems.append(f"the faulted job: {bad}")
+    if good["device_hangs"] or good["host_fallbacks"] or good["degraded"]:
+        problems.append(f"the clean job: {good}")
+    if code != 200 or rc != 0:
+        problems.append(f"/readyz {code}, SIGTERM rc {rc}")
+    if problems:
+        raise AssertionError(f"phase 14 (d): {problems}\n{srv.tail()}")
+    return rec
+
+
+def deadline_cost(device, runs=7):
+    """(e): the scale corpus in process under inline prep, deadlines off
+    and at 60 s, alternating: walls, and the host milliseconds of each
+    bounded dispatch and materialize call (``batch._bounded``, timed around
+    in both arms); medians and quartiles, after one untimed run.  The
+    refine programs' pins must be equal in both arms.  Reported, not
+    gated."""
+    from ccsx_tpu_torch.pipeline import batch
+
+    real = batch._bounded
+    host = {}
+
+    def timed(resil, label, phase, fn):
+        t = time.perf_counter()
+        try:
+            return real(resil, label, phase, fn)
+        finally:
+            host.setdefault(phase, []).append(time.perf_counter() - t)
+
+    arms = {"off": INLINE, "on_60s": INLINE + ["--dispatch-deadline", "60"]}
+    walls = {a: [] for a in arms}
+    per_call = {a: {"dispatch": [], "materialize": []} for a in arms}
+    pins = {a: [] for a in arms}
+    keep = ("shapes", "builds", "eager", "replays", "rounds",
+            "slabs_per_shape", "warm_replays")
+    # one untimed run first: both arms start from the same program cache
+    # (shapes dispatched once so far build their programs here)
+    phase_scale64(device, INLINE)
+    batch._bounded = timed
+    try:
+        for _ in range(runs):
+            for arm, extra in arms.items():
+                host.clear()
+                secs, _, _ = phase_scale64(device, extra)
+                walls[arm].append(secs)
+                for ph in per_call[arm]:
+                    per_call[arm][ph].append(
+                        1e3 * statistics.mean(host.get(ph, [0.0])))
+                pins[arm].append({k: LAST["pins"][k] for k in keep})
+    finally:
+        batch._bounded = real
+    rec = {"runs": runs, "walls_s": walls,
+           "walls_quartiles": {a: quartiles(w) for a, w in walls.items()},
+           "host_ms_per_call": per_call,
+           "host_ms_quartiles": {a: {ph: quartiles(v) for ph, v in d.items()}
+                                 for a, d in per_call.items()},
+           "pins": pins["on_60s"][-1]}
+    print(f"[chip_smoke] phase 14 (e) deadlines off / at 60 s, {runs} runs "
+          f"each: wall (q1, median, q3) {rec['walls_quartiles']}; host ms a "
+          f"bounded call {rec['host_ms_quartiles']}", flush=True)
+    if any(p != pins["off"][0] for a in arms for p in pins[a]):
+        raise AssertionError(f"phase 14 (e): the refine programs' pins "
+                             f"differ: {pins}")
+    return rec
+
+
+def phase_resilience(device):
+    """Phase 14, the resilience plane on the card: (a) an injected
+    permanent hang under ``--dispatch-deadline 2`` in both global-fill
+    arms, (b) a tripped breaker and one healed by its probe, (c) a real
+    spinning kernel past a 1 s deadline and a process exiting with a
+    thread parked in a CUDA wait, (d) a served job's hang beside a clean
+    job, (e) the deadline's cost when on."""
+    t_phase = time.perf_counter()
+    rec = resil_processes(device)
+    problems = []
+    hung = dict(device_hangs=lambda v: (v or 0) >= 1, degraded=bool,
+                host_fallbacks=lambda v: (v or 0) >= 1,
+                seconds=lambda v: v < 0.25 * float(RESIL_HANG_S))
+    check_resil(rec["hang"], problems, CRASH_KERNELS, ("banded_rotband",),
+                **hung)
+    check_resil(rec["hang_rotband"], problems,
+                ("banded_rotband", "banded_local", "traceback_walk"),
+                ("banded_global",), **hung)
+    check_resil(rec["breaker"], problems, CRASH_KERNELS,
+                breaker_trips=lambda v: (v or 0) >= 1,
+                breaker_state=lambda v: v == "open",
+                host_fallbacks=lambda v: (v or 0) >= 1)
+    check_resil(rec["breaker_probe"], problems, CRASH_KERNELS,
+                breaker_trips=lambda v: (v or 0) >= 1,
+                breaker_probes=lambda v: (v or 0) >= 1,
+                breaker_state=lambda v: v == "closed")
+    if problems:
+        raise AssertionError(f"phase 14 (a)/(b): {problems}")
+    # one hole a sweep: the spun group is alone in its sweep; then the
+    # adaptive window, where later dispatches of the same sweep may wait
+    # behind the spin too (reported)
+    rec["spun"] = spun_dispatch(device, ["--inflight", "1"])
+    rec["spun_window"] = spun_dispatch(device, hangs=None)
+    rec["exit_parked"] = exit_parked()
+    rec["served"] = served_hang(device)
+    rec["cost"] = deadline_cost(device)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] phase 14 in {rec['phase_s']:.1f}s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3946,6 +4383,11 @@ def main(argv=None) -> int:
                          "(the supervisor: shepherd, the elastic fleet, "
                          "the supervised serve fleet) alone, printing its "
                          "record")
+    ap.add_argument("--resilience-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 14 "
+                         "(the resilience plane: dispatch deadlines, the "
+                         "circuit breaker, a served job's hang) alone, "
+                         "printing its record")
     ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
                     help="with --warmup-only: also two cold CLI processes "
                          "of each dispatch arm on a corpus of N holes")
@@ -4001,6 +4443,10 @@ def main(argv=None) -> int:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"supervisor": phase_supervisor("cuda")}))
         return 0
+    if args.resilience_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"resilience": phase_resilience("cuda")}))
+        return 0
     if args.warmup_only:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"warmup": phase_warmup(
@@ -4053,15 +4499,19 @@ def main(argv=None) -> int:
     crash = phase_crash("cuda", cold_driver)
     planes = phase_host_planes("cuda", nstate, {
         arm: long_arms[arm]["seconds"] for arm in ("default", "screen")})
-    warm = phase_warmup("cuda")
+    # phase 10's cold CLI processes (reported only) run under
+    # --warmup-only alone, which keeps the full script within its time
+    # with phase 14
+    warm = phase_warmup("cuda", cold=0)
     # the 2048-hole pair of phase 11 runs under --shards-only alone, which
     # keeps the full script within its time with phase 13
     shards = phase_shards("cuda", (os.path.join(WORK, "rec_t1_trace.jsonl"),
                                    os.path.join(WORK,
                                                 "rec_t1_metrics.jsonl")),
                           big_holes=0)
-    served = phase_serve("cuda", warm["cold"]["medians"]["default"])
+    served = phase_serve("cuda", None)
     supervised = phase_supervisor("cuda")
+    resil = phase_resilience("cuda")
     # each kernel's launches on the run of the main path that carries it
     launches = {k: runs["rotband" if k == "banded_rotband" else "batched"][1][k]
                 for k in SOURCES}
@@ -4118,7 +4568,8 @@ def main(argv=None) -> int:
                       "warmup": warm,
                       "shards": shards,
                       "serve": served,
-                      "supervisor": supervised}))
+                      "supervisor": supervised,
+                      "resilience": resil}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,7 +4,7 @@ against the JAX package's, and the recoveries it drives in the port.
 The JAX package's cases of the same names (tests/test_faults.py: the spec
 and schedule, the env spec, the CLI's refusal, quarantine in both
 drivers, the ingest fault, the OOM bisection and its per-request replay;
-tests/test_resilience.py: a hang with no dispatch deadline completes;
+tests/test_resilience.py: a hang with deadlines off completes;
 tests/test_trace.py: an injected stall fires the watchdog through the
 CLI), run on the port's CLI with ``--device cpu``.  Bytes are compared
 with the JAX package's: one module-scoped JAX CLI process on the CPU gives
@@ -301,10 +301,10 @@ def test_persistent_oom_replays_per_request(ref, tmp_path, capsys):
                                        ("device_hang", "CCSX_FAULT_HANG_S")])
 def test_hang_without_deadline_completes(point, env, ref, tmp_path,
                                          monkeypatch, capsys):
-    """The port has no dispatch deadline: as the JAX package's does with
-    --dispatch-deadline 0, a stalled or hung step sleeps with its span open
-    and then completes, with the same bytes and no resilience counter
-    moved."""
+    """With deadlines off (--dispatch-deadline 0, the default), as in the
+    JAX package, a stalled or hung step sleeps with its span open and then
+    completes, with the same bytes and no resilience counter moved
+    (tests/test_torch_resilience.py has the deadline's cases)."""
     out, m = tmp_path / "o.fa", tmp_path / "m.jsonl"
     monkeypatch.setenv(env, "0.1")
     faultinject.arm(f"{point}@1")

@@ -380,8 +380,7 @@ COPIES = {
     # range's stream, journal and shard writer): no mesh precheck
     "pipeline/fleet.py": ({"_run_range"}, set(), set(), None),
     # the serving plane: run.run_pipeline (batched) is the job entry, with
-    # RunMetrics; no per-job resilience (dispatch_deadline_s and
-    # breaker_strikes refused); a device fault stops the server
+    # RunMetrics; a device fault stops the server
     # (_device_stop, readiness' "device_fault", serve_main's loop and rc
     # 1, the card and kernels up before the port binds); job snapshots
     # carry the port's step counters and the job's own launches, eager
@@ -389,23 +388,50 @@ COPIES = {
     # server's snapshot carries the refine programs' cumulative counts
     "pipeline/serve.py": (
         {"Job.__init__", "Job.info", "ServeCore.__init__",
-         "ServeCore._build_job", "ServeCore._help_fanout",
+         "ServeCore._help_fanout",
          "ServeCore._job_main", "ServeCore._run_fanout",
          "ServeCore._run_job", "ServeCore.readiness",
          "_JobRuntime.__init__", "serve_main"},
         {"ServeCore._device_stop", "ServeMetrics", "ServeMetrics.snapshot",
-         "_REFUSED_OVERRIDES",
          "from ccsx_tpu.utils.run_metrics import PORT_KEYS",
          "from ccsx_tpu.utils.run_metrics import RunMetrics"},
         set(), None),
     # the supervisor: an empty runner prelude (the children take their
     # device from their argv; nothing of JAX to pin), and shepherd_main's
-    # --rank-stall-timeout help (no --dispatch-deadline in the port yet)
-    # and -h (the port's CLI prints its USAGE, rc 1: it has no usage()).
+    # --rank-stall-timeout help (sized above a CUDA child's start-up, and
+    # the one answer to a kernel that never ends, which --dispatch-deadline
+    # cannot end) and -h (the port's CLI prints its USAGE, rc 1: it has no
+    # usage()).
     # The runner and the message prefix differ only in the package name
     # (test_supervisor_runner_names_the_ports_cli)
     "pipeline/supervisor.py": (
         {"default_prelude", "shepherd_main"}, set(), set(), None),
+    # the resilience plane: the messages name the port's per-request
+    # replay (the per-hole round on the same card) where the JAX package's
+    # name its host path.  The code is the JAX package's; only its callers
+    # differ (pipeline/batch.py): the port has no 'compile' class — a
+    # kernel that does not build or launch ends the run
+    # (cuda_ext.KernelError, rc 1) — so no compile strike ever comes
+    "pipeline/resilience.py": (
+        {"DeadlineExpired.__init__", "CircuitBreaker.strike"}, set(), set(),
+        None),
+    # the port's lint: its own baseline file (lint_baseline_torch.json)
+    # over its own package (PACKAGE_DIR, equal once the package name is
+    # normalized); span-force also accepts a CUDA synchronise; the int64
+    # promotions include torch's .long(); schema-drift adds RunMetrics'
+    # step counters (its PORT_KEYS) to the snapshot's keys.  The other
+    # three checkers are copies
+    "lint/__init__.py": (set(), set(), set(), None),
+    "lint/core.py": ({"BASELINE_NAME"}, set(), set(), None),
+    "lint/checks_spans.py": ({"MESSAGE", "_forces"}, set(), set(), None),
+    "lint/checks_numeric.py": (
+        {"MESSAGE", "MESSAGE_SHIFT", "_has_int64"}, set(), set(), None),
+    "lint/checks_schema.py": (
+        {"_snapshot_keys", "check_tree"},
+        {"_snapshot_method", "_method_keys", "_run_metrics_keys"}, set(),
+        None),
+    "lint/checks_concurrency.py": (set(), set(), set(), None),
+    "lint/checks_crashsafe.py": (set(), set(), set(), None),
 }
 
 

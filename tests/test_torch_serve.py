@@ -11,11 +11,12 @@ inputs from rng(0)), every served output is held to the JAX CLI's
   jobs that builds no refine program (the server's ``/progress``
   ``programs``) and dispatches nothing eagerly;
 * the queue cap (QueueFull; HTTP 429 with Retry-After), submit validation
-  (unknown keys, and the JAX server's ``dispatch_deadline_s`` and
-  ``breaker_strikes`` overrides, refused with 400: the resilience plane is
-  not in this package), a cancel mid-job beside an untouched sibling, a
-  drain to rc 75 and a new core resuming from state.json to the same
-  bytes, ``/healthz`` against ``/readyz``;
+  (unknown keys), the per-job ``dispatch_deadline_s`` and
+  ``breaker_strikes`` overrides applied to the job's own config (its own
+  Resilience), a ``device_hang`` under a job's own deadline that degrades
+  that job alone, a cancel mid-job beside an untouched sibling, a drain to
+  rc 75 and a new core resuming from state.json to the same bytes,
+  ``/healthz`` against ``/readyz``;
 * the device-fault stop: a kernel failure in one job turns ``/readyz`` 503
   ``device_fault``, drains the sibling, persists both jobs, and a
   restarted core finishes both to the JAX CLI's bytes.
@@ -401,20 +402,68 @@ def test_queue_cap_429_with_retry_after(corpus, served):
     assert code == 200
 
 
-@pytest.mark.parametrize("key", ["dispatch_deadline_s", "breaker_strikes"])
-def test_resilience_overrides_are_refused(key, served):
-    """The JAX server takes these as per-job overrides (its per-job
-    Resilience); here they would be silent no-ops, so they are a 400 that
-    says why, and no job is queued."""
+@pytest.mark.parametrize("key,value,field", [
+    ("dispatch_deadline_s", "30", 30.0), ("breaker_strikes", 2, 2)])
+def test_resilience_overrides_apply(key, value, field, corpus, served):
+    """The JAX server's per-job resilience overrides: accepted over HTTP,
+    coerced into the job's own config (from which the batched driver
+    builds the job's Resilience), and the job runs to the JAX CLI's
+    bytes."""
+    fa3, ref3, _, _ = corpus
     core, req = served()
     code, body, _ = req("POST", "/jobs", json.dumps(
-        {"input": "/x.fa", key: 2}).encode())
-    assert code == 400
-    err = json.loads(body)["error"]
-    assert key in err and "resilience plane" in err
-    assert core.jobs() == []
-    # the JAX server accepts the key
-    assert key in jserve._CFG_OVERRIDES
+        {"input": fa3, key: value}).encode())
+    assert code == 201, body
+    jid = json.loads(body)["id"]
+    assert core.wait(jid, 120) == "done"
+    job = core.job(jid)
+    assert getattr(job.cfg, key) == field
+    assert getattr(core.cfg, key) != field
+    assert _out(job) == ref3
+    assert key in jserve._CFG_OVERRIDES and key in serve._CFG_OVERRIDES
+
+
+def _join_abandoned(timeout=60.0):
+    """Wait for every abandoned bounded call of this process to end, so
+    that none wakes into a later test's refine programs."""
+    for t in threading.enumerate():
+        if t.name.startswith("ccsx-bounded-"):
+            t.join(timeout)
+            assert not t.is_alive(), t.name
+
+
+def test_device_hang_degrades_only_the_faulted_job(corpus, served,
+                                                   monkeypatch):
+    """Job A's first device step hangs; its own 1.5 s dispatch deadline
+    abandons the call and replays A's group per request.  Both jobs give
+    the JAX CLI's bytes, the hang and the replays are booked in A alone,
+    and the server stays ready (tests/test_serve.py's case).  The hang
+    (6 s) is far past the deadline and ends within the test."""
+    fa3, ref3, _, _ = corpus
+    monkeypatch.setenv("CCSX_DEADLINE_GRACE", "1")
+    monkeypatch.setenv("CCSX_FAULT_HANG_S", "6")
+    core, req = served(max_active=2)
+    bad = core.submit(input_path=fa3, overrides={
+        "faults": "device_hang@1", "dispatch_deadline_s": 1.5})
+    good = core.submit(input_path=fa3)
+    assert core.wait(good.id, 180) == "done"
+    assert core.wait(bad.id, 180) == "done", (bad.state, bad.error)
+    assert _out(bad) == ref3 and _out(good) == ref3
+    snaps = core.job_snapshots()
+    assert snaps[bad.id]["device_hangs"] >= 1
+    assert snaps[bad.id]["host_fallbacks"] >= 1
+    assert snaps[bad.id]["degraded"]
+    assert snaps[good.id]["device_hangs"] == 0
+    assert snaps[good.id]["host_fallbacks"] == 0
+    assert "degraded" not in snaps[good.id]
+    code, body, _ = req("GET", "/readyz")
+    assert code == 200
+    code, body, _ = req("GET", "/metrics")
+    text = body.decode()
+    assert f'ccsx_job_device_hangs{{job="{good.id}"}} 0' in text
+    bad_line = f'ccsx_job_device_hangs{{job="{bad.id}"}}'
+    assert bad_line in text and f"{bad_line} 0" not in text
+    _join_abandoned()
 
 
 def test_submit_validation(served):
