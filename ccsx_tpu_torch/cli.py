@@ -85,6 +85,12 @@ Port options (long):
 --device {cuda,cpu}   the card (default) or the plain CPU path
 --batch {auto,on,off} batched packed driver (on) or per-hole driver (off);
                       auto: on for cuda, off for cpu [auto]
+--mesh D,P            the batched driver's device mesh, data x pass (e.g.
+                      4,2): holes split over D, each hole's passes over P,
+                      pass packing off; default: every card on the data
+                      axis (the fused packed dispatch).  One visible card
+                      ignores it (a stderr line); no effect with --batch
+                      off
 --inflight <int>      pin the batched driver's admission window to N holes
                       (default: adaptive, zmw_microbatch/16 growing x4 up
                       to zmw_microbatch, the reference's chunk policy)
@@ -192,6 +198,10 @@ Port options (long):
                       [0]
 --hosts <int>         total ranks in a sharded run
 --host-id <int>       this rank, in [0, --hosts)
+--coordinator <host:port>
+                      with --hosts: rendezvous the ranks through a
+                      torch.distributed process group (gloo) at this
+                      address; a rank that cannot reach it ends at rc 1
 --merge-shards <N>    merge OUTPUT.shard0..N-1 into OUTPUT and exit
 --merge-unmarked      with --merge-shards: merge a shard set that has no
                       completion markers at all
@@ -263,6 +273,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", action="count", default=0, dest="verbose")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--batch", default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--mesh", default=None, metavar="D,P",
+                   help="Batched-pipeline device mesh as data,pass (e.g. "
+                        "4,2); default: all devices on the data axis")
     p.add_argument("--inflight", type=int, default=None)
     p.add_argument("--banded-impl", default="", dest="banded_impl",
                    choices=["", "scan", "pallas", "rotband"])
@@ -334,6 +347,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Total hosts in a sharded run")
     p.add_argument("--host-id", type=int, default=None,
                    help="This host's rank in [0, --hosts)")
+    p.add_argument("--coordinator", default=None,
+                   help="torch.distributed (gloo) rendezvous address "
+                        "host:port of a sharded run's process group")
     p.add_argument("--merge-shards", type=int, default=None, metavar="N",
                    help="Merge OUTPUT.shard0..N-1 into OUTPUT and exit")
     p.add_argument("--merge-unmarked", action="store_true",
@@ -367,6 +383,16 @@ def config_from_args(args) -> CcsConfig:
     exclude = None
     if args.exclude:
         exclude = frozenset(x for x in args.exclude.split(",") if x)
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+            if len(mesh_shape) != 2 or min(mesh_shape) < 1:
+                raise ValueError
+        except ValueError:
+            print(f"Error: --mesh expects D,P integers, got {args.mesh!r}",
+                  file=sys.stderr)
+            raise SystemExit(1)
     pass_buckets = None
     if args.pass_buckets:
         try:
@@ -459,6 +485,7 @@ def config_from_args(args) -> CcsConfig:
                                                or args.device != "cuda"),
         device=args.device,
         banded_impl=args.banded_impl,
+        mesh_shape=mesh_shape,
         refine_iters=args.refine_iters,
         max_passes=args.max_passes,
         window_growth=args.window_growth,
@@ -631,16 +658,32 @@ def main(argv: Optional[list] = None) -> int:
             print("Error: --batch off is not supported with --hosts",
                   file=sys.stderr)
             return exitcodes.RC_FATAL
+    batch = args.batch
+    if batch == "auto":
+        batch = "on" if args.device == "cuda" else "off"
+    if cfg.mesh_shape is not None and batch == "off" and not sharded:
+        # (a sharded rank always runs the batched driver, mesh included)
+        print("[ccsx-tpu-torch] --mesh has no effect with --batch off",
+              file=sys.stderr)
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
     def _run():
         if sharded:
-            from ccsx_tpu_torch.parallel.distributed import \
-                run_pipeline_sharded
+            from ccsx_tpu_torch.parallel import distributed
 
-            return run_pipeline_sharded(
-                args.input, args.output, cfg, args.host_id, args.hosts,
-                journal_path=args.journal, inflight=args.inflight)
+            if args.coordinator is not None:
+                try:
+                    distributed.init_distributed(
+                        args.coordinator, args.hosts, args.host_id)
+                except distributed.RendezvousError as e:
+                    print(f"Error: --coordinator: {e}", file=sys.stderr)
+                    return exitcodes.RC_FATAL
+            try:
+                return distributed.run_pipeline_sharded(
+                    args.input, args.output, cfg, args.host_id, args.hosts,
+                    journal_path=args.journal, inflight=args.inflight)
+            finally:
+                distributed.shutdown_distributed()
         return run_pipeline(args.input, args.output, cfg, batch=args.batch,
                             inflight=args.inflight,
                             journal_path=args.journal)

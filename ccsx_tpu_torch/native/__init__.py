@@ -1,17 +1,22 @@
 """Native (C++) IO layer loader.
 
-Builds the library from io_native.cpp (a copy of the JAX package's) on
-first use if a compiler is present, loads it via ctypes, and exposes
-``lib()``.  Import never fails: callers check ``available()`` and fall back
+Builds the library from io_native.cpp, align_native.cpp and
+baseline_simd.cpp (copies of the JAX package's) on first use if a compiler
+is present, loads it via ctypes, and exposes ``lib()``.  Beside the IO
+layer it carries the scalar Gotoh aligner (native/align.py, the oracle's
+twin) and the CPU banded-fill baseline, built twice from one source as the
+JAX package's Makefile builds it (``ccsx_banded_fill_vec`` at the package
+flags, ``ccsx_banded_fill_scalar`` at -O2 with the vectorizers off);
+nothing on the run path calls those two.  Import never fails: callers check ``available()`` and fall back
 to the pure-Python parsers (ccsx_tpu_torch.io.fastx / ccsx_tpu_torch.io.bam)
 when the toolchain is absent.
 
-The build is one ``g++`` call, as ops/cuda_ext.py calls ``nvcc``: into
-``build/ccsx_tpu_torch_native/`` beside the package (never the package
-directory), named by a hash of the source, the flags and the host CPU (the
-flags say ``-march=native``), written to a temp file and moved into place
-with ``os.replace``, so processes that build at the same moment each land a
-whole library.
+The build is two ``g++`` calls (the scalar object, then the library), as
+ops/cuda_ext.py calls ``nvcc``: into ``build/ccsx_tpu_torch_native/``
+beside the package (never the package directory), named by a hash of the
+sources, the flags and the host CPU (the flags say ``-march=native``),
+written to temp files and moved into place with ``os.replace``, so
+processes that build at the same moment each land a whole library.
 """
 
 from __future__ import annotations
@@ -26,11 +31,18 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "io_native.cpp")
+# the aligner and the baseline fill, linked beside the IO layer
+AIDS = tuple(os.path.join(_DIR, f) for f in ("align_native.cpp",
+                                             "baseline_simd.cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "ccsx_tpu_torch_native")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra",
              "-std=c++17", "-pthread", "-shared")
 LIBS = ("-lz", "-lpthread")
+# baseline_simd.cpp's scalar control: identical source, vectorizers off
+SCALAR_FLAGS = ("-O2", "-fno-tree-vectorize", "-fno-tree-slp-vectorize",
+                "-fPIC", "-Wall", "-Wextra", "-std=c++17", "-pthread",
+                "-DCCSX_VARIANT_SCALAR")
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -78,11 +90,13 @@ def _host_key() -> bytes:
 
 
 def target() -> str:
-    """The library path: named by a hash of the source, the flags and the
+    """The library path: named by a hash of the sources, the flags and the
     host CPU."""
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read())
-    h.update(" ".join(CXX_FLAGS + LIBS).encode())
+    h = hashlib.sha256()
+    for src in (SOURCE,) + AIDS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(CXX_FLAGS + LIBS + SCALAR_FLAGS).encode())
     h.update(_host_key())
     return os.path.join(BUILD_DIR, f"libccsx_io-{h.hexdigest()[:16]}.so")
 
@@ -90,27 +104,38 @@ def target() -> str:
 def _build(out: str) -> bool:
     cxx = os.environ.get("CXX", "g++")
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    obj = f"{tmp}.scalar.o"
     try:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        r = subprocess.run(
-            [cxx, *CXX_FLAGS, "-o", tmp, SOURCE, *LIBS],
-            check=False, capture_output=True, timeout=120, text=True,
-        )
+        for cmd in ([cxx, *SCALAR_FLAGS, "-c", "-o", obj, AIDS[1]],
+                    [cxx, *CXX_FLAGS, "-o", tmp, SOURCE, *AIDS, obj,
+                     *LIBS]):
+            r = subprocess.run(cmd, check=False, capture_output=True,
+                               timeout=120, text=True)
+            if r.returncode != 0:
+                break
     except (OSError, subprocess.SubprocessError) as e:
         _note_failure(f"{type(e).__name__}: {e}", "")
+        _unlink(tmp, obj)
         return False
     if r.returncode != 0:
         err = (r.stderr or r.stdout or "").strip()
         first = next((ln for ln in err.splitlines() if ln.strip()),
                      f"{cxx} rc {r.returncode}")
         _note_failure(first[:200], (r.stdout or "") + (r.stderr or ""))
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
+        _unlink(tmp, obj)
         return False
+    _unlink(obj)
     os.replace(tmp, out)
     return True
+
+
+def _unlink(*paths: str) -> None:
+    for p in paths:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
 
 
 def build_error() -> "str | None":
@@ -205,6 +230,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ccsx_writer_close.argtypes = [c.c_void_p]
     lib.ccsx_bgzf_pool_bench.restype = c.c_double
     lib.ccsx_bgzf_pool_bench.argtypes = [c.c_char_p, c.c_int, c.c_int]
+    lib.ccsx_align_scalar.restype = c.c_int
+    lib.ccsx_align_scalar.argtypes = [
+        c.POINTER(c.c_uint8), c.c_int64, c.POINTER(c.c_uint8), c.c_int64,
+        c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.POINTER(c.c_int64), c.POINTER(c.c_uint8), c.c_int64,
+        c.POINTER(c.c_int64),
+    ]
+    # the CPU baseline's banded fill, vectorized and scalar builds
+    for name in ("ccsx_banded_fill_vec", "ccsx_banded_fill_scalar"):
+        fn = getattr(lib, name)
+        fn.restype = c.c_int
+        fn.argtypes = [c.POINTER(c.c_uint8), c.c_int64,
+                       c.POINTER(c.c_uint8), c.c_int64,
+                       c.c_int, c.c_int, c.c_int, c.c_int,
+                       c.POINTER(c.c_int16)]
+    lib.ccsx_banded_fill_many.restype = c.c_int64
+    lib.ccsx_banded_fill_many.argtypes = [
+        c.POINTER(c.c_uint8), c.POINTER(c.c_uint8), c.c_int64, c.c_int64,
+        c.c_int64, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.POINTER(c.c_int16)]
     return lib
 
 

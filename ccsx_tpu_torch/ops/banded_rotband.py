@@ -193,12 +193,14 @@ def batched_align_global_moves(qs: torch.Tensor, qlens: torch.Tensor,
     score = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         lib = _lib()
-        rc = lib.ccsx_banded_rotband(
-            qs.data_ptr(), qmax, qlens.data_ptr(), ts.data_ptr(),
-            ts.stride(0), ts.shape[1], tlens.data_ptr(),
-            params.match, params.mismatch, params.gap_open, params.gap_extend,
-            moves.data_ptr(), offs.data_ptr(), score.data_ptr(), n,
-            cuda_ext.stream_ptr(dev))
+        with torch.cuda.device(dev):
+            rc = lib.ccsx_banded_rotband(
+                qs.data_ptr(), qmax, qlens.data_ptr(), ts.data_ptr(),
+                ts.stride(0), ts.shape[1], tlens.data_ptr(),
+                params.match, params.mismatch, params.gap_open,
+                params.gap_extend,
+                moves.data_ptr(), offs.data_ptr(), score.data_ptr(), n,
+                cuda_ext.stream_ptr(dev))
         cuda_ext.check(lib, rc, what)
         cuda_ext.count("banded_rotband")
     return score, moves, offs

@@ -18,7 +18,16 @@ What ``LAUNCHES`` gets is also added to the counts of the caller's
 ``scope()``, where there is one: a served job's own launches, eager refine
 dispatches and graph replays, counted across its threads (the prep pool's
 threads inherit the job's context through ``faultinject.inherit``) while
-other jobs run beside it.
+other jobs run beside it.  Under a device mesh (parallel/mesh.py) each
+logical device's work runs inside ``lane(i)``, and what ``LAUNCHES`` gets
+there is also added to ``LANE_LAUNCHES[i]``: the launches of each logical
+device, which add up to ``LAUNCHES``' share of the mesh's steps.
+
+Every launcher runs under ``torch.cuda.device(x.device)``: the libraries
+carry their own CUDA runtime, which launches in whatever context is
+current on the calling thread, so the thread's current device is made the
+tensors' before the launch (and the stream passed is that device's current
+one).
 
 A kernel that fails to build or launch raises ``KernelError``, and a wrapper
 that refuses its tensors on the card raises its subclass ``RefusedInputs``:
@@ -47,6 +56,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"banded_global": 0, "banded_local": 0, "banded_rotband": 0,
             "traceback_walk": 0}
+
+# logical device (a mesh entry's index) -> its launches, for lane()
+LANE_LAUNCHES: dict = {}
 
 _lock = threading.Lock()
 _tls = threading.local()
@@ -78,6 +90,27 @@ def count(name: str) -> None:
         sc = _scope.get()
         if sc is not None:
             sc["launches"][name] += 1
+        _add_lane(name, 1)
+
+
+def _add_lane(name: str, n: int) -> None:
+    """Book ``n`` launches of ``name`` to this thread's lane (holds _lock)."""
+    ln = getattr(_tls, "lane", None)
+    if ln is not None:
+        per = LANE_LAUNCHES.setdefault(ln, dict.fromkeys(LAUNCHES, 0))
+        per[name] += n
+
+
+@contextlib.contextmanager
+def lane(i: int):
+    """For the duration, book this thread's launches to logical device
+    ``i`` too (``LANE_LAUNCHES``)."""
+    prev = getattr(_tls, "lane", None)
+    _tls.lane = i
+    try:
+        yield
+    finally:
+        _tls.lane = prev
 
 
 @contextlib.contextmanager
@@ -100,6 +133,8 @@ def add(counts: dict) -> None:
             LAUNCHES[name] += n
             if sc is not None:
                 sc["launches"][name] += n
+            if n:
+                _add_lane(name, n)
 
 
 @contextlib.contextmanager
@@ -130,6 +165,7 @@ def reset_counts() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        LANE_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -33,28 +33,51 @@ def vote(aligned: torch.Tensor, ins_cnt: torch.Tensor, ins_b: torch.Tensor,
       nwin      (..., T) int32  — passes voting the winning cell
     Every count is an exact int32 sum over the hole's real rows (masked pass
     rows count nothing); ties go to the lowest code (torch.argmax returns
-    the first maximum).
+    the first maximum).  ``vote_counts`` and ``vote_from_counts`` are its
+    two halves: a device mesh sums the counts of each pass shard's rows in
+    between (parallel/mesh.py).
     """
+    cons, ins_base, ins_votes, ncov, nwin = vote_from_counts(
+        vote_counts(aligned, ins_cnt, ins_b, row_mask, max_ins), max_ins)
+    match = (aligned == cons[..., None, :]) & row_mask[..., None]
+    return cons, ins_base, ins_votes, ncov, match, nwin
+
+
+def vote_counts(aligned: torch.Tensor, ins_cnt: torch.Tensor,
+                ins_b: torch.Tensor, row_mask: torch.Tensor,
+                max_ins: int = 4) -> torch.Tensor:
+    """The int32 counts ``vote`` decides on, summed over the pass axis:
+    (5 + 5 * max_ins, ..., T) — the five base classes, then for each
+    insertion rank r the rows inserting at least r + 1 bases and its four
+    base classes.  Counts of disjoint row sets add up to those of their
+    union, exactly."""
     mask = row_mask[..., None]
-    cnts = torch.stack(
-        [((aligned == c) & mask).sum(-2, dtype=torch.int32) for c in range(5)])
+    rows = [((aligned == c) & mask).sum(-2, dtype=torch.int32)
+            for c in range(5)]
+    for r in range(max_ins):
+        has = mask & (ins_cnt > r)
+        rows.append(has.sum(-2, dtype=torch.int32))
+        rows.extend(((ins_b[..., r] == c) & has).sum(-2, dtype=torch.int32)
+                    for c in range(4))
+    return torch.stack(rows)
+
+
+def vote_from_counts(counts: torch.Tensor, max_ins: int = 4):
+    """(cons, ins_base, ins_votes, ncov, nwin) of ``vote`` from its
+    ``vote_counts``."""
+    cnts = counts[:5]
     ncov = cnts.sum(0, dtype=torch.int32)
     nwin = cnts.max(0).values
     cons = torch.argmax(cnts, dim=0).to(torch.uint8)
     cons = torch.where(ncov == 0, GAP, cons).to(torch.uint8)
-
     bases, votes = [], []
     for r in range(max_ins):
-        has = mask & (ins_cnt > r)
-        votes.append(has.sum(-2, dtype=torch.int32))
-        bc = torch.stack([((ins_b[..., r] == c) & has).sum(-2,
-                                                           dtype=torch.int32)
-                          for c in range(4)])
-        bases.append(torch.argmax(bc, dim=0).to(torch.uint8))
+        k = 5 + 5 * r
+        votes.append(counts[k])
+        bases.append(torch.argmax(counts[k + 1:k + 5], dim=0).to(torch.uint8))
     ins_base = torch.stack(bases, dim=-1)
     ins_votes = torch.stack(votes, dim=-1)
-    match = (aligned == cons[..., None, :]) & mask
-    return cons, ins_base, ins_votes, ncov, match, nwin
+    return cons, ins_base, ins_votes, ncov, nwin
 
 
 def make_segment_voter(max_ins: int, num_segments: int):

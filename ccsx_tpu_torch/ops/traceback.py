@@ -161,11 +161,12 @@ def project(moves: torch.Tensor, offs: torch.Tensor, qs: torch.Tensor,
         # first launch can meet a build's only with the attribute's same
         # value; the prep pool's pump launches only the local fill and the
         # seed and screen steps
-        rc = lib.ccsx_traceback_walk(
-            moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
-            qlens.data_ptr(), tlens.data_ptr(), tmax, max_ins,
-            aligned.data_ptr(), ins_cnt.data_ptr(), ins_b.data_ptr(),
-            lead.data_ptr(), P, cuda_ext.stream_ptr(dev))
+        with torch.cuda.device(dev):
+            rc = lib.ccsx_traceback_walk(
+                moves.data_ptr(), offs.data_ptr(), qs.data_ptr(), qmax,
+                qlens.data_ptr(), tlens.data_ptr(), tmax, max_ins,
+                aligned.data_ptr(), ins_cnt.data_ptr(), ins_b.data_ptr(),
+                lead.data_ptr(), P, cuda_ext.stream_ptr(dev))
         cuda_ext.check(lib, rc, what)
         cuda_ext.count("traceback_walk")
     return aligned, ins_cnt, ins_b, lead

@@ -1,8 +1,14 @@
-"""Sharded runs on one host (a copy of the JAX package's
-parallel/distributed.py; ``run_pipeline_sharded`` goes through the port's
-run setup, and ``init_distributed`` is not here: the port has no
-multi-process control plane yet).
+"""Sharded runs (a copy of the JAX package's parallel/distributed.py;
+``run_pipeline_sharded`` goes through the port's run setup).
 
+* control plane — with ``--coordinator host:port``, ``init_distributed``
+  joins the ranks in one ``torch.distributed`` process group (gloo, over
+  TCP) before they start, the counterpart of ``jax.distributed.initialize``:
+  a rank that cannot rendezvous ends at rc 1 and writes nothing.  Nothing
+  on the hot path uses the group (the ranks share nothing, and their
+  meshes span their own cards, parallel/mesh.py); gloo, not NCCL, because
+  no tensor crosses it and NCCL refuses two ranks on one card.  The group
+  is destroyed when the rank's run ends.
 * input sharding — every rank reads the same input stream and owns the
   holes with ``global_index % n == rank`` (round-robin over the
   *filtered* hole stream, so the assignment is a pure function of the
@@ -33,6 +39,45 @@ from ccsx_tpu_torch.config import CcsConfig
 from ccsx_tpu_torch.io import fastx
 from ccsx_tpu_torch.utils.journal import (Journal, write_json_atomic,
                                     write_json_exclusive)
+
+
+# seconds a rank waits for the whole group at the rendezvous (the JAX
+# package's initialize waits 300 s by default)
+RENDEZVOUS_TIMEOUT_S = 300.0
+
+
+class RendezvousError(RuntimeError):
+    """The ranks' process group could not be formed."""
+
+
+def init_distributed(coordinator: str, num_processes: int,
+                     process_id: int) -> tuple:
+    """Join this rank (``process_id`` of ``num_processes``) to the run's
+    process group at ``coordinator`` (host:port; rank 0 serves the
+    rendezvous there); returns (rank, world size).  RendezvousError when
+    the group does not form within RENDEZVOUS_TIMEOUT_S."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    except (RuntimeError, ValueError, OSError) as e:
+        raise RendezvousError(
+            f"rank {process_id} of {num_processes} could not rendezvous "
+            f"at {coordinator}: {e}") from e
+    return dist.get_rank(), dist.get_world_size()
+
+
+def shutdown_distributed() -> None:
+    """Destroy this process's group, if init_distributed made one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def shard_stream(stream, rank: int, n: int) -> Iterator:
@@ -193,8 +238,9 @@ def run_pipeline_sharded(in_path: str, out_path: str, cfg: CcsConfig,
 
     Writes <out>.shard<rank> (+ .idx, + the .done marker at rc 0).  After
     all ranks finish, any one process calls merge_shards(out_path, n) to
-    produce the final FASTA.  The device, the kernels, the Metrics, the
-    tracer, telemetry, the drain guard and the exit codes are
+    produce the final FASTA.  The device, the kernels, the mesh precheck
+    (a bad --mesh ends the rank before its shard files are touched), the
+    Metrics, the tracer, telemetry, the drain guard and the exit codes are
     run.run_pipeline's; this rank's stream, journal and writer are
     opened here."""
     import dataclasses

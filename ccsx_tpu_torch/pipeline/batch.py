@@ -27,10 +27,11 @@ holes and serves their pending requests together:
   results routed back into each generator; finished holes go to the
   ordered writer in input order.
 
-This is the JAX package's pipeline/batch.py, single-device path (its
-``pool is None`` inline-prep branch), with the same slab plan and groups,
-the same per-hole freeze/fixpoint/overflow rules and so the same output
-bytes.  JAX runs the refine loop as a device ``while_loop``, one compiled
+This is the JAX package's pipeline/batch.py, with the same slab plan and
+groups, the same per-hole freeze/fixpoint/overflow rules and so the same
+output bytes; with more than one device, its fused multi-device packed
+dispatch and its (data, pass) mesh (--mesh D,P) over logical devices
+(parallel/mesh.py), each a card and a stream of its own.  JAX runs the refine loop as a device ``while_loop``, one compiled
 program per canonical slab shape.  Here, on the card, each refine step at
 one shape is one CUDA graph of exactly iters + 1 rounds with no host read
 (pipeline/graphs.py): a shape's first slab runs the rounds eagerly, its
@@ -92,9 +93,11 @@ from ccsx_tpu_torch.ops import breakpoint as bp_mod
 from ccsx_tpu_torch.ops import cuda_ext
 from ccsx_tpu_torch.ops import encode as enc
 from ccsx_tpu_torch.ops import msa, seed, seed_device, sketch, traceback
+from ccsx_tpu_torch.parallel import mesh as mesh_mod
 from ccsx_tpu_torch.pipeline import graphs
 from ccsx_tpu_torch.pipeline import pack as pack_mod
 from ccsx_tpu_torch.pipeline import resilience as resil_mod
+from ccsx_tpu_torch.utils import device as device_mod
 from ccsx_tpu_torch.utils import faultinject, trace
 from ccsx_tpu_torch.utils.journal import Journal
 from ccsx_tpu_torch.utils.metrics import check_failure_budget
@@ -170,6 +173,15 @@ def _out_shape_tag(out) -> str:
     return "x".join(str(d) for d in out.shape)
 
 
+def _read(out) -> np.ndarray:
+    """A step's output on the host: a tensor, or a mesh step's outputs on
+    several logical devices (parallel/mesh.Placed, each read on its own
+    stream)."""
+    if isinstance(out, mesh_mod.Placed):
+        return out.read()
+    return out.cpu().numpy()
+
+
 def _materialize(out, group: str, n: int, resil=None) -> np.ndarray:
     """The device-to-host read of a step's output, in a watchdog-visible
     device span (attribute=False: a wait, never in the group table).  An
@@ -178,8 +190,7 @@ def _materialize(out, group: str, n: int, resil=None) -> np.ndarray:
     the wait itself is bounded (``resil``)."""
     with trace.device_span("materialize", group=group,
                            shape=_out_shape_tag(out), attribute=False, n=n):
-        return _bounded(resil, group, "materialize",
-                        lambda: out.cpu().numpy())
+        return _bounded(resil, group, "materialize", lambda: _read(out))
 
 
 def _run_group_sync(idxs, key, dispatch, finish, host_one, results, metrics,
@@ -314,14 +325,78 @@ def _fused_tmax(tlen: int, quant: int) -> int:
 
 # ---- the packed refine step -----------------------------------------------
 
-def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
-                 rows: tuple, max_ins: int, device_only: bool = False):
+def _keep(fixed, old, new):
+    """``new`` where ``fixed`` is False, else ``old``; ``fixed`` covers the
+    leading axes."""
+    return torch.where(fixed.view(fixed.shape + (1,) * (new.dim()
+                                                       - fixed.dim())),
+                       old, new)
+
+
+class _Rows:
+    """The row-shaped outputs of _refine_loop (match, aligned, ins_cnt,
+    lead_ins) over ``shape`` rows on ``device``: (R,) rows of a packed
+    slab, or (Z, P) of a bucketed group; ``of_holes(fixed)`` maps the
+    holes' frozen flags onto the rows' leading axes."""
+
+    def __init__(self, shape: tuple, of_holes, device):
+        self.shape, self.of_holes, self.device = shape, of_holes, device
+
+    def zeros(self, tmax: int) -> tuple:
+        def z(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return (z(*self.shape, tmax, dtype=torch.bool),    # match
+                z(*self.shape, tmax, dtype=torch.uint8),   # aligned
+                z(*self.shape, tmax, dtype=torch.int32),   # ins_cnt
+                z(*self.shape, dtype=torch.int32))         # lead_ins
+
+    def keep(self, fixed, old: tuple, new: tuple) -> tuple:
+        fr = self.of_holes(fixed)
+        return tuple(_keep(fr, o, n) for o, n in zip(old, new))
+
+
+class _ShardRows:
+    """_Rows over one data shard of a (data, pass) mesh: each pass entry
+    keeps its own rows, (Zd, Pb) on its device, so each of the four outputs
+    is a list over the entries; ``gather`` joins them on the lead after the
+    loop (the breakpoint scan needs all of a hole's rows)."""
+
+    def __init__(self, shard, blocks):
+        self.shard = shard
+        self.rows = [_Rows(b[0].shape[:2], lambda f: f, e.device)
+                     for e, b in zip(shard, blocks)]
+
+    def zeros(self, tmax: int) -> tuple:
+        per = []
+        for e, r in zip(self.shard, self.rows):
+            with mesh_mod.scope(e):
+                per.append(r.zeros(tmax))
+        return tuple(list(x) for x in zip(*per))
+
+    def keep(self, fixed, old: tuple, new: tuple) -> tuple:
+        lead = self.shard[0]
+        per = []
+        for k, (e, r) in enumerate(zip(self.shard, self.rows)):
+            with mesh_mod.scope(e):
+                per.append(r.keep(mesh_mod.send(fixed, lead, e),
+                                  tuple(x[k] for x in old),
+                                  tuple(x[k] for x in new)))
+        return tuple(list(x) for x in zip(*per))
+
+    def gather(self, outs: tuple) -> tuple:
+        lead = self.shard[0]
+        return tuple(torch.cat([mesh_mod.send(x, e, lead)
+                                for e, x in zip(self.shard, parts)], dim=1)
+                     for parts in outs)
+
+
+def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, rows,
+                 max_ins: int, device_only: bool = False):
     """The refinement loop both refine cores run, over H holes (slots).
 
     ``one_round(draft, dlen)`` gives the 9 round outputs: five hole-shaped
-    (H, ...) and four row-shaped (``rows`` + ...: (R,) rows of a packed
-    slab, or (Z, P) of a bucketed group); ``row_fixed(fixed)`` maps the
-    holes' frozen flags onto those rows' leading axes.  A hole whose
+    (H, ...) and four row-shaped, which ``rows`` (a _Rows, or a mesh
+    shard's _ShardRows) makes, freezes and keeps.  A hole whose
     speculative draft stops changing is frozen (re-rounds on a fixed draft
     are no-ops) and keeps its LAST live round's outputs; a hole whose draft
     would outgrow tmax is frozen and flagged (``ovf``) for an exact host
@@ -344,20 +419,15 @@ def _refine_loop(one_round, mat, iters: int, draft, dlen, fixed, row_fixed,
             z(H, tmax, max_ins, dtype=torch.uint8),     # ins_base
             z(H, tmax, max_ins, dtype=torch.int32),     # ins_votes
             z(H, tmax, dtype=torch.int32),              # ncov
-            z(H, tmax, dtype=torch.int32),              # nwin
-            z(*rows, tmax, dtype=torch.bool),           # match
-            z(*rows, tmax, dtype=torch.uint8),          # aligned
-            z(*rows, tmax, dtype=torch.int32),          # ins_cnt
-            z(*rows, dtype=torch.int32))                # lead_ins
+            z(H, tmax, dtype=torch.int32)               # nwin
+            ) + rows.zeros(tmax)
     ovf = torch.zeros(H, dtype=torch.bool, device=dev)
     dlen = dlen.to(torch.int32)
     it = 0
     while True:
         new = one_round(draft, dlen)
-        fr = row_fixed(fixed)
-        outs = tuple(
-            torch.where(f.view(f.shape + (1,) * (n.dim() - f.dim())), o, n)
-            for f, o, n in zip((fixed,) * 5 + (fr,) * 4, outs, new))
+        outs = tuple(_keep(fixed, o, n) for o, n in zip(outs[:5], new[:5])
+                     ) + rows.keep(fixed, outs[5:], new[5:])
         if it >= iters:
             break          # the final round: no draft is consumed past it
         cons, ins_base, ins_votes, ncov = outs[:4]
@@ -424,8 +494,9 @@ def _refine_core_packed(params: AlignParams, max_ins: int, tmax: int,
                             ).index_add_(0, seg, row_mask.to(torch.int32))
         outs, dlen, ovf = _refine_loop(
             lambda d, dl: one_round(qs, qlens, row_mask, seg, d, dl), mat,
-            iters, ts, tlens, nrows == 0, lambda f: f.index_select(0, seg),
-            (qs.shape[0],), max_ins, device_only)
+            iters, ts, tlens, nrows == 0,
+            _Rows((qs.shape[0],), lambda f: f.index_select(0, seg),
+                  qs.device), max_ins, device_only)
         (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
          lead_ins) = outs
         bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
@@ -536,20 +607,8 @@ def _round_body(params: AlignParams, max_ins: int, tmax: int,
     fill = global_fill(params, impl)
 
     def body(qs, qlens, row_mask, draft, dlen):
-        Z, P, qmax = qs.shape
-        hole = torch.arange(Z, device=qs.device)[:, None].expand(
-            Z, P).reshape(-1)                       # each hole P times
-        ts_r = draft.index_select(0, hole)          # (Z·P, tmax)
-        tl_r = dlen.to(torch.int32).index_select(0, hole)
-        q_r = qs.reshape(Z * P, qmax).contiguous()
-        ql_r = qlens.reshape(Z * P).to(torch.int32).contiguous()
-        _, moves, offs = fill(q_r, ql_r, ts_r, tl_r)
-        aligned, ins_cnt, ins_b, lead_ins = traceback.project(
-            moves, offs, q_r, ql_r, tl_r, tmax, max_ins)
-        aligned = aligned.view(Z, P, tmax)
-        ins_cnt = ins_cnt.view(Z, P, tmax)
-        ins_b = ins_b.view(Z, P, tmax, max_ins)
-        lead_ins = lead_ins.view(Z, P)
+        aligned, ins_cnt, ins_b, lead_ins = mesh_mod.block_rows(
+            fill, qs, qlens, draft, dlen, tmax, max_ins)
         cons, ins_base, ins_votes, ncov, match, nwin = msa.vote(
             aligned, ins_cnt, ins_b, row_mask, max_ins)
         return (cons, ins_base, ins_votes, ncov, nwin, match, aligned,
@@ -595,8 +654,9 @@ def _refine_core(params: AlignParams, max_ins: int, tmax: int, iters: int,
     def core(qs, qlens, ts, tlens, row_mask):
         outs, dlen, ovf = _refine_loop(
             lambda d, dl: one_round(qs, qlens, row_mask, d, dl), mat, iters,
-            ts, tlens, ~row_mask.any(dim=1), lambda f: f, qs.shape[:2],
-            max_ins, device_only)
+            ts, tlens, ~row_mask.any(dim=1),
+            _Rows(qs.shape[:2], lambda f: f, qs.device), max_ins,
+            device_only)
         (cons, ins_base, ins_votes, ncov, nwin, match, aligned, ins_cnt,
          lead_ins) = outs
         bp, advance = bp_advance(match, cons, aligned, ins_cnt, lead_ins,
@@ -705,6 +765,70 @@ def _unpack_refine(out: np.ndarray, max_ins: int, tmax: int):
         out, max_ins, tmax)
     return (cons, ins_base, ins_votes, ncov, nwin, bp, rest[:, :-2],
             rest[:, -2], rest[:, -1] != 0)
+
+
+def _mesh_step(mesh, params: AlignParams, max_ins: int, tmax: int,
+               iters: int, bp_consts: tuple, impl: str, args,
+               refine: bool, device_only: bool) -> "mesh_mod.Placed":
+    """A bucketed group's step over a (data, pass) mesh (--mesh D,P): the
+    counterpart of the JAX package's GSPMD-sharded ``_refine_step`` /
+    ``_round_step``, run eagerly (no CUDA graph).
+
+    ``args`` are the host (qs, qlens, ts, tlens, row_mask) of Z holes, Z a
+    multiple of the data dimension D.  Data shard d takes holes [d·Z/D,
+    (d+1)·Z/D); its pass entries split the P passes when the pass dimension
+    divides P, else its first entry takes them all (the pass axis
+    replicated).  Each shard runs _refine_loop on its first entry (the
+    lead), whose rounds are parallel/mesh.shard_round: every entry fills
+    and walks its block on its own stream and the vote counts are summed on
+    the lead.  Each entry keeps and freezes its own rows through the loop;
+    the breakpoint scan runs on the lead over the rows gathered once after
+    it.  A refine step (``refine``) freezes holes without a real pass from
+    the start and runs ``iters`` speculative rounds; a bare round is the
+    loop's final round alone.  The shards' outputs are _refine_step's or
+    _round_step's rows, joined by the read."""
+    qs, qlens, ts, tlens, row_mask = args
+    D, pass_dim = mesh.shape
+    Z, P = qs.shape[:2]
+    Pe = mesh_mod.split_passes(P, pass_dim)
+    Zd, Pb = Z // D, P // Pe
+    fill = global_fill(params, impl)
+    mat = msa.make_materializer(tmax, tmax, max_ins)
+    bp_advance = bp_mod.make_bp_advance(tmax, *bp_consts)
+
+    def round_of(shard, blocks):
+        def one(draft, dlen):
+            holes, per = mesh_mod.shard_round(shard, blocks, draft, dlen,
+                                              fill, tmax, max_ins)
+            return holes + tuple(list(x) for x in zip(*per))
+        return one
+
+    parts, leads = [], []
+    for d in range(D):
+        shard = list(mesh.entries[d, :Pe])
+        lead = shard[0]
+        hs = slice(d * Zd, (d + 1) * Zd)
+        blocks = mesh_mod.place_blocks(shard, [
+            (qs[hs, p * Pb:(p + 1) * Pb], qlens[hs, p * Pb:(p + 1) * Pb],
+             row_mask[hs, p * Pb:(p + 1) * Pb]) for p in range(Pe)])
+        draft, dlen, rm = mesh_mod.place_blocks(
+            [lead], [(ts[hs], tlens[hs], row_mask[hs])])[0]
+        with mesh_mod.scope(lead):
+            fixed = ~rm.any(dim=1) if refine else torch.zeros_like(rm[:, 0])
+            rows = _ShardRows(shard, blocks)
+            outs, dlen, ovf = _refine_loop(
+                round_of(shard, blocks), mat, iters if refine else 0,
+                draft, dlen, fixed, rows, max_ins, device_only)
+            cons, ins_base, ins_votes, ncov, nwin = outs[:5]
+            match, aligned, ins_cnt, lead_ins = rows.gather(outs[5:])
+            bp, advance = bp_advance(match, cons, aligned, ins_cnt,
+                                     lead_ins, rm, dlen)
+            parts.append(_pack_out(
+                (cons, ins_base, ins_votes.to(torch.uint8),
+                 ncov.to(torch.uint8), nwin.to(torch.uint8)),
+                (bp, advance, dlen, ovf) if refine else (bp, advance)))
+        leads.append(lead)
+    return mesh_mod.Placed(parts, leads, np.concatenate)
 
 
 def _pair_fill_packed(params: AlignParams, qmax: int, tmax: int, device):
@@ -1094,6 +1218,16 @@ class BatchExecutor:
     Either way the per-request replay is refine_host (or the round) over
     the per-hole round, on the same device.
 
+    More than one device (``devices``, default utils/device.local_devices;
+    the JAX package's rules): packed, each WAVE of a group carries D
+    consecutive slabs of its plan at the wave's largest canonical height
+    and slab j runs on device j's refine program and stream (the fused
+    dispatch, one span and one dispatch a wave); under --mesh D,P the
+    bucketed groups run over a (data, pass) mesh instead (_mesh_step:
+    holes split over data, passes over pass), packing off.  A single
+    device ignores --mesh.  A device may be listed more than once: each
+    entry is a logical device with its own stream (parallel/mesh.py).
+
     Each refine step goes through the program cache (graphs.dispatch: on
     the card a shape's first slab runs eagerly, its second captures the
     shape's CUDA graph, the rest replay it), or its program is built ahead
@@ -1110,7 +1244,7 @@ class BatchExecutor:
 
     def __init__(self, cfg: CcsConfig, device="cuda",
                  metrics: Optional[RunMetrics] = None, warmup=None,
-                 resil=None):
+                 resil=None, devices=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = metrics if metrics is not None else RunMetrics()
@@ -1129,9 +1263,42 @@ class BatchExecutor:
                            cfg.banded_impl)
         self.slab_rows = pack_mod.pow2(max(1, cfg.slab_rows))
         self.slab_ladder = max(1, int(cfg.slab_shape_ladder))
-        # one device: the JAX package's rule (pass_packing, and --mesh is
-        # ignored on a single device) reduces to the flag
-        self.packing = bool(cfg.pass_packing)
+        # this host's devices only: the ranks of a sharded run share
+        # nothing, so each one's mesh spans its own cards
+        self._devices = (list(devices) if devices is not None
+                         else device_mod.local_devices(self.device))
+        n_dev = len(self._devices)
+        # the JAX package's rule: an explicit --mesh selects the bucketed
+        # (Z, P) layout (packed slab rows cross hole boundaries, which the
+        # (data, pass) split cannot express); a single device ignores
+        # --mesh, so packing stays on there
+        self.packing = bool(cfg.pass_packing) and (
+            cfg.mesh_shape is None or n_dev == 1)
+        self._slab_mesh = None
+        self._mesh = None
+        if self.packing and n_dev > 1:
+            self._slab_mesh = mesh_mod.build_slab_mesh(self._devices)
+        if cfg.pass_packing and cfg.mesh_shape is not None and n_dev > 1:
+            print("[ccsx-tpu-torch] pass packing disabled under --mesh "
+                  "(bucketed (Z, P) grouping carries the shardings)",
+                  file=sys.stderr)
+        if n_dev > 1 and not self.packing:
+            # (data, pass) mesh: holes split over 'data', each hole's
+            # passes over 'pass' when the pass bucket divides; a 1-tuple
+            # means pure data parallelism; extra devices idle
+            shape = self.validate_mesh(cfg.mesh_shape, n_dev)
+            self._mesh = mesh_mod.build_mesh(
+                shape, devices=self._devices[:int(np.prod(shape))])
+            self._data_dim, self._pass_dim = shape
+            if (self._pass_dim > 1
+                    and all(b % self._pass_dim for b in cfg.pass_buckets)):
+                print(f"[ccsx-tpu-torch] mesh pass dim {self._pass_dim} "
+                      f"divides no pass bucket {tuple(cfg.pass_buckets)}: "
+                      "pass axis will be replicated (no pass parallelism)",
+                      file=sys.stderr)
+        elif cfg.mesh_shape is not None:
+            print("[ccsx-tpu-torch] --mesh ignored: single device visible",
+                  file=sys.stderr)
         # the warmup plane (pipeline/warmup.py); None without --warmup
         self._warmup = warmup
         self._shape_seen: set = set()  # distinct packed (R, q, t, i) shapes
@@ -1143,6 +1310,41 @@ class BatchExecutor:
         # what the steps' closures take from cfg, in every program key
         # (with the step's factory, which a caller may replace)
         self._cfg_key = graphs.config_key(cfg, self.device)
+
+    @staticmethod
+    def normalize_mesh_shape(shape, n_dev: int):
+        if shape is None:
+            return (n_dev, 1)
+        shape = tuple(int(x) for x in shape)
+        if len(shape) == 1:
+            shape = (shape[0], 1)
+        if len(shape) != 2:
+            raise ValueError(f"mesh_shape must be (data,) or (data, pass), "
+                             f"got {shape}")
+        if min(shape) < 1:
+            raise ValueError(f"mesh dims must be >= 1: {shape}")
+        return shape
+
+    @classmethod
+    def validate_mesh(cls, mesh_shape, n_dev: int):
+        """Normalize and check a mesh shape; ValueError on a bad one.  The
+        one validation point: __init__ and mesh_precheck (before any output
+        file opens) call it.  A single device ignores the mesh, so only
+        n_dev > 1 can be too few."""
+        shape = cls.normalize_mesh_shape(mesh_shape, n_dev)
+        need = int(np.prod(shape))
+        if n_dev > 1 and need > n_dev:
+            raise ValueError(
+                f"mesh {shape} needs {need} devices, host has {n_dev}")
+        return shape
+
+    def _round_z(self, n: int) -> int:
+        """A bucketed group's Z: its holes (the port pads no power of two),
+        rounded up to a multiple of the mesh's data dimension; the pad
+        holes have no real pass, so a refine step freezes them at once."""
+        if self._mesh is None:
+            return n
+        return -(-n // self._data_dim) * self._data_dim
 
     def _count_cells(self, reqs, idxs, P, qmax, Z, iters: int = 1):
         """Padding accounting of a bucketed group (metrics.dp_cells_*):
@@ -1160,6 +1362,29 @@ class BatchExecutor:
                           dp_round_cells_real=real,
                           dp_rowcells_real=rows_real * scale,
                           dp_rowcells_cap=len(idxs) * P * scale)
+
+    def _count_cells_packed_fused(self, reqs, idxs, qmax: int, iters: int,
+                                  R: int, n_slabs: int, n_slots: int):
+        """Padding accounting of one fused wave (n_slabs real slabs at
+        height R over n_slots device slots), as the JAX package's
+        _count_cells_packed_fused: dispatched cells count the real slabs
+        only, the idle slots show in fused_slot_fill."""
+        band = self.cfg.align.band
+        scale = qmax * band * iters
+        rows_real = int(sum(int(reqs[i].row_mask.sum()) for i in idxs))
+        real = band * iters * int(
+            sum(int(reqs[i].qlens[reqs[i].row_mask].sum()) for i in idxs))
+        padded = n_slabs * R * scale
+        self.metrics.bump(dp_cells_padded=padded, dp_cells_real=real,
+                          dp_round_cells_padded=padded,
+                          dp_round_cells_real=real,
+                          dp_rowcells_real=rows_real * scale,
+                          dp_rowcells_cap=n_slabs * R * scale,
+                          dp_rows_real=rows_real,
+                          dp_rows_dispatched=n_slabs * R,
+                          packed_dispatches=1, packed_holes=len(idxs),
+                          fused_waves=1, fused_slabs_real=n_slabs,
+                          fused_slots=n_slots)
 
     def _count_cells_packed(self, reqs, idxs, qmax: int, R: int,
                             iters: int):
@@ -1189,16 +1414,19 @@ class BatchExecutor:
     # ---- programs concurrently with ingest/prep
 
     def _warm_key(self, qmax, tmax, iters, R, H):
-        return ("refine_packed", qmax, tmax, iters, R, H, self.bimpl)
+        # a fused executor's builds are its D lanes' programs
+        dstack = len(self._devices) if self._slab_mesh is not None else 1
+        return ("refine_packed", qmax, tmax, iters, R, H, self.bimpl, dstack)
 
-    def _packed_spec(self, qmax, tmax, iters, R, H) -> tuple:
+    def _packed_spec(self, qmax, tmax, iters, R, H, lane=0) -> tuple:
         """(key, step factory, input specs) of the packed refine step at
         one slab shape (the device-only loop on the card), for
-        graphs.program and graphs.dispatch."""
+        graphs.program and graphs.dispatch; ``lane`` > 0 is a fused wave's
+        logical device (its own programs, pool and stream)."""
         cfg = self.cfg
         cuda = self.device.type == "cuda"
         return (self._warm_key(qmax, tmax, iters, R, H) + self._cfg_key
-                + (_refine_step_packed,),
+                + (_refine_step_packed,) + ((lane,) if lane else ()),
                 lambda: _refine_step_packed(
                     cfg.align, cfg.max_ins_per_col, tmax, iters, H,
                     self._bp_consts(), (R, qmax), cfg.banded_impl,
@@ -1266,8 +1494,10 @@ class BatchExecutor:
         Each hole counts once per group (the driver re-warms every active
         hole after every sweep).  A group that fills its row budget will
         dribble through the lower canonical heights at its end, so those
-        are queued too.  A no-op without a warmup compiler and under
-        --pass-buckets (its Z is the sweep's, unknowable at admission)."""
+        are queued too.  Under the fused multi-device dispatch a build is
+        every logical device's program of the shape (_warm_build).  A
+        no-op without a warmup compiler and under --pass-buckets (its Z is
+        the sweep's, unknowable at admission)."""
         if self._warmup is None or not self.packing:
             return
         qmax = req.qs.shape[1]
@@ -1316,20 +1546,33 @@ class BatchExecutor:
         every segment starts frozen) and replay it once, waited for.  The
         warmup=True span carries the dispatch span's group and shape, so
         it books the shape's one compile and the first real dispatch books
-        as execute."""
+        as execute.  Under the fused dispatch it builds and warms the
+        shape's program on every logical device, each on its own stream
+        and in its own lane (a wave's slab j runs entry j's)."""
+        fused = self._slab_mesh is not None
+        entries = self._slab_mesh.flat if fused else []
         with trace.device_span(  # lint: ok[span-force] warm() synchronises
                 "warmup", group=f"packed:q{qmax}:t{tmax}:i{iters}"
                                 f":b{self.bimpl}",
-                shape=f"R{R}:S{H}", warmup=True):
-            self._packed_program(qmax, tmax, iters, R, H).warm()
+                shape=(f"D{len(entries)}:" if fused else "") + f"R{R}:S{H}",
+                warmup=True):
+            if not fused:
+                self._packed_program(qmax, tmax, iters, R, H).warm()
+            for e in entries:
+                with mesh_mod.scope(e):
+                    graphs.program(*self._packed_spec(
+                        qmax, tmax, iters, R, H, lane=e.index + 1),
+                        e.device, lane=e.index + 1).warm()
 
-    def _stack_slab(self, reqs, idxs, qmax, tmax):
+    def _stack_slab(self, reqs, idxs, qmax, tmax, shape=None):
         """Pack the real pass-rows of the given requests into ONE slab:
         (R, qmax) rows + (H, tmax) per-hole drafts + the row->hole segment
-        vector, rows in idxs order (the packing plan's placement order)."""
+        vector, rows in idxs order (the packing plan's placement order).
+        ``shape`` forces (R, H): a fused wave stacks every slab at the
+        wave's height."""
         rows = [int(reqs[i].row_mask.sum()) for i in idxs]
-        R, H = pack_mod.slab_shape(rows, self.slab_rows,
-                                   ladder=self.slab_ladder)
+        R, H = shape if shape is not None else pack_mod.slab_shape(
+            rows, self.slab_rows, ladder=self.slab_ladder)
         qs = np.zeros((R, qmax), np.uint8)
         qlens = np.zeros((R,), np.int32)
         row_mask = np.zeros((R,), bool)
@@ -1351,13 +1594,14 @@ class BatchExecutor:
             r0 += n
         return qs, qlens, row_mask, seg, ts, tlens
 
-    def _stack_group(self, reqs, idxs, P, qmax, tmax):
+    def _stack_group(self, reqs, idxs, P, qmax, tmax, Z=None):
         """Stack a bucketed group's requests into (Z, P) step inputs, Z =
-        len(idxs): each request keeps its own P pass rows (pad passes
+        len(idxs) unless given (a mesh's _round_z; the pad holes have no
+        pass): each request keeps its own P pass rows (pad passes
         included) and its draft padded to tmax.  Unlike the JAX package
         (_z_bucket), Z is not padded to a power of two: the port compiles
         nothing per shape."""
-        Z = len(idxs)
+        Z = len(idxs) if Z is None else Z
         qs = np.zeros((Z, P, qmax), np.uint8)
         qlens = np.zeros((Z, P), np.int32)
         ts = np.full((Z, tmax), banded.PAD, np.uint8)
@@ -1396,7 +1640,7 @@ class BatchExecutor:
 
     def _run_rounds(self, requests: List[RoundRequest]) -> list:
         """Bare rounds, one bucketed (Z, P) step per (P, qmax, tmax)
-        group."""
+        group (over the (data, pass) mesh under --mesh)."""
         cfg = self.cfg
         M = cfg.max_ins_per_col
         groups: Dict[tuple, List[int]] = defaultdict(list)
@@ -1409,7 +1653,8 @@ class BatchExecutor:
         self.metrics.bump(round_groups=len(groups),
                           device_dispatches=len(groups))
         for (P, qmax, _), idxs in groups.items():
-            self._count_cells(requests, idxs, P, qmax, len(idxs))
+            self._count_cells(requests, idxs, P, qmax,
+                              self._round_z(len(idxs)))
         pin = self.device.type == "cuda"
 
         def label(key):
@@ -1417,20 +1662,25 @@ class BatchExecutor:
 
         def dispatch(idxs, key):
             P, qmax, tmax = key
-            Z = len(idxs)
-            buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
-                                               tmax), pin=pin)
+            Z = self._round_z(len(idxs))
+            args = self._stack_group(requests, idxs, P, qmax, tmax, Z)
             faultinject.fire("device_oom")
-            step = _round_step(cfg.align, M, tmax, self._bp_consts(),
-                               (P, qmax), cfg.banded_impl)
             self.metrics.bump(bucketed_dispatches=1)
             self.metrics.bump_banded(self.bimpl)
             with trace.device_span(
                     "round", group=label(key),
                     cells=Z * P * qmax * cfg.align.band, shape=f"Z{Z}",
-                    n=Z, Z=Z) as sp:
+                    n=len(idxs), Z=Z) as sp:
                 faultinject.fire("stall")
                 faultinject.fire("device_hang")
+                if self._mesh is not None:
+                    return sp.force(_mesh_step(
+                        self._mesh, cfg.align, M, tmax, 0,
+                        self._bp_consts(), cfg.banded_impl, args,
+                        refine=False, device_only=pin))
+                step = _round_step(cfg.align, M, tmax, self._bp_consts(),
+                                   (P, qmax), cfg.banded_impl)
+                buf = _pack_args(args, pin=pin)
                 return sp.force(step(buf.to(self.device, non_blocking=pin)))
 
         def finish(idxs, key, out):
@@ -1470,7 +1720,8 @@ class BatchExecutor:
         self.metrics.bump(windows=len(requests), bucketed_groups=len(groups),
                           device_dispatches=len(groups))
         for (P, qmax, _, iters), idxs in groups.items():
-            self._count_cells(requests, idxs, P, qmax, len(idxs), iters)
+            self._count_cells(requests, idxs, P, qmax,
+                              self._round_z(len(idxs)), iters)
         pin = self.device.type == "cuda"
 
         def label(key):
@@ -1484,18 +1735,25 @@ class BatchExecutor:
 
         def dispatch(idxs, key):
             P, qmax, tmax, iters = key
-            Z = len(idxs)
-            buf = _pack_args(self._stack_group(requests, idxs, P, qmax,
-                                               tmax), pin=pin)
+            Z = self._round_z(len(idxs))
+            args = self._stack_group(requests, idxs, P, qmax, tmax, Z)
             faultinject.fire("device_oom")
             self.metrics.bump(bucketed_dispatches=1)
             self.metrics.bump_banded(self.bimpl)
             with trace.device_span(
                     "refine", group=label(key),
                     cells=Z * P * qmax * cfg.align.band * iters,
-                    shape=f"Z{Z}", n=Z, Z=Z) as sp:
+                    shape=f"Z{Z}", n=len(idxs), Z=Z) as sp:
                 faultinject.fire("stall")
                 faultinject.fire("device_hang")
+                if self._mesh is not None:
+                    # eager on the mesh: one loop per data shard, each on
+                    # its lead entry's stream
+                    return sp.force(_mesh_step(
+                        self._mesh, cfg.align, M, tmax, iters,
+                        self._bp_consts(), cfg.banded_impl, args,
+                        refine=True, device_only=pin))
+                buf = _pack_args(args, pin=pin)
                 return sp.force(graphs.dispatch(
                     *self._bucketed_spec(P, qmax, tmax, iters, Z),
                     self.device, buf))
@@ -1519,7 +1777,9 @@ class BatchExecutor:
         return results
 
     def _run_refine_packed(self, requests: List[RefineRequest]) -> list:
-        """The packed branch of _run_refine."""
+        """The packed branch of _run_refine: one step a slab, or with more
+        than one device one fused dispatch a wave of D slabs (slab j on
+        logical device j % D, its own refine programs and stream)."""
         cfg = self.cfg
         M = cfg.max_ins_per_col
         nrows = [int(r.row_mask.sum()) for r in requests]
@@ -1542,11 +1802,39 @@ class BatchExecutor:
             tmax = _fused_tmax(len(req.draft), self.len_quant)
             shape_groups[(req.qs.shape[1], tmax, req.iters)].append(i)
 
+        fused = self._slab_mesh is not None
+        D = len(self._devices)
+
+        def plan_wave(idxs):
+            """(plan, R, H) of a wave's holes, derived again by dispatch
+            and finish, so OOM-bisected halves stay self-consistent: every
+            slab of a wave at the wave's largest canonical height."""
+            rows = [nrows[i] for i in idxs]
+            plan = pack_mod.plan_slabs(rows, self.slab_rows)
+            R = max(pack_mod.slab_shape([rows[j] for j in s],
+                                        self.slab_rows,
+                                        ladder=self.slab_ladder)[0]
+                    for s in plan)
+            return plan, R, max(1, R // pack_mod.SEG_DIV)
+
         groups: Dict[tuple, List[int]] = {}
         sweep_shapes = set()
+        n_slabs = 0
         for key, idxs in shape_groups.items():
-            for s_no, slab in enumerate(pack_mod.plan_slabs(
-                    [nrows[i] for i in idxs], self.slab_rows)):
+            slabs = pack_mod.plan_slabs([nrows[i] for i in idxs],
+                                        self.slab_rows)
+            n_slabs += len(slabs)
+            if fused:
+                for w in range(0, len(slabs), D):
+                    chunk = slabs[w:w + D]
+                    wave = [idxs[j] for s in chunk for j in s]
+                    groups[key + (w // D,)] = wave
+                    _, R, _ = plan_wave(wave)
+                    sweep_shapes.add(key + (R,))
+                    self._count_cells_packed_fused(
+                        requests, wave, key[0], key[2], R, len(chunk), D)
+                continue
+            for s_no, slab in enumerate(slabs):
                 sl_idxs = [idxs[j] for j in slab]
                 groups[key + (s_no,)] = sl_idxs
                 R, _ = pack_mod.slab_shape([nrows[i] for i in sl_idxs],
@@ -1556,16 +1844,18 @@ class BatchExecutor:
                 self._count_cells_packed(requests, sl_idxs, key[0], R,
                                          key[2])
         self._warm_sweep_shapes(sweep_shapes)
-        self.metrics.bump(slabs=len(groups), device_dispatches=len(groups))
+        self.metrics.bump(slabs=n_slabs, device_dispatches=len(groups))
         pin = self.device.type == "cuda"
 
         def label(key):
-            # the shape group, without the slab ordinal key[3]
+            # the shape group, without the slab or wave ordinal key[3]
             return f"packed:q{key[0]}:t{key[1]}:i{key[2]}:b{self.bimpl}"
 
         def dispatch(idxs, key):
             qmax, tmax, iters, _ = key
             faultinject.fire("device_oom")
+            if fused:
+                return dispatch_wave(idxs, key)
             args = self._stack_slab(requests, idxs, qmax, tmax)
             R, H = args[0].shape[0], args[4].shape[0]
             big, small = _pack_slab_args(args, pin=pin)
@@ -1584,15 +1874,45 @@ class BatchExecutor:
                     *self._packed_spec(qmax, tmax, iters, R, H),
                     self.device, big, small))
 
-        def finish(idxs, key, out):
-            _, tmax, _, _ = key
-            R, H = pack_mod.slab_shape([nrows[i] for i in idxs],
-                                       self.slab_rows,
-                                       ladder=self.slab_ladder)
+        def dispatch_wave(idxs, key):
+            qmax, tmax, iters, _ = key
+            plan, R, H = plan_wave(idxs)
+            # an OOM re-plan may hold more than D slabs: K a device then
+            # (the span's shape, as the JAX package's stacked dimension)
+            K = -(-len(plan) // D)
+            slabs = [_pack_slab_args(self._stack_slab(
+                requests, [idxs[j] for j in s], qmax, tmax, shape=(R, H)),
+                pin=pin) for s in plan]
+            self._note_shape(R, qmax, tmax, iters)
+            self.metrics.bump_banded(self.bimpl)
+            entries = self._slab_mesh.flat
+            self._warm_wait(self._warm_key(qmax, tmax, iters, R, H))
+            with trace.device_span(
+                    "refine_packed", group=label(key),
+                    cells=len(plan) * R * qmax * cfg.align.band * iters,
+                    shape=f"D{K * D}:R{R}:S{H}",
+                    plan={"wave": key[3], "slabs": len(plan), "chips": D,
+                          "rows": R, "holes": len(idxs)}) as sp:
+                faultinject.fire("stall")
+                faultinject.fire("device_hang")
+                parts, used = [], []
+                for j, (big, small) in enumerate(slabs):
+                    # a tail wave leaves its last devices idle: no dummy
+                    # slab is launched
+                    e = entries[j % D]
+                    with mesh_mod.scope(e):
+                        parts.append(graphs.dispatch(
+                            *self._packed_spec(qmax, tmax, iters, R, H,
+                                               lane=e.index + 1),
+                            e.device, big, small, lane=e.index + 1))
+                    used.append(e)
+                return sp.force(mesh_mod.Placed(parts, used))
+
+        def finish_slab(sl_idxs, tmax, out, R, H):
             (cons, ins_base, ins_votes, ncov, nwin, bp, advance, dlen,
              ovf) = _unpack_slab_refine(out, M, tmax, H, R)
             r0 = 0
-            for s, i in enumerate(idxs):
+            for s, i in enumerate(sl_idxs):
                 req = requests[i]
                 rows = slice(r0, r0 + nrows[i])
                 r0 += nrows[i]
@@ -1608,6 +1928,18 @@ class BatchExecutor:
                     cons=cons[s], ins_base=ins_base[s],
                     ins_votes=ins_votes[s], ncov=ncov[s], nwin=nwin[s],
                     tlen=int(dlen[s]), bp=int(bp[s]), advance=adv))
+
+        def finish(idxs, key, out):
+            tmax = key[1]
+            if not fused:
+                R, H = pack_mod.slab_shape([nrows[i] for i in idxs],
+                                           self.slab_rows,
+                                           ladder=self.slab_ladder)
+                finish_slab(idxs, tmax, out, R, H)
+                return
+            plan, R, H = plan_wave(idxs)
+            for s, o in zip(plan, out):
+                finish_slab([idxs[j] for j in s], tmax, o, R, H)
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
                                self.metrics, self.max_oom_resplits,
@@ -1686,7 +2018,7 @@ def _grow_window(window: int, cap: int, growth: int) -> int:
 def drive_batched(stream, writer, cfg: CcsConfig, device,
                   metrics: RunMetrics, journal: Journal,
                   inflight: Optional[int] = None, admission=None,
-                  warm=None) -> None:
+                  warm=None, devices=None) -> None:
     """The batched scheduler over an open ZMW stream and writer.
 
     Admits holes into a window, runs one pair sweep and one refine sweep
@@ -1714,6 +2046,10 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     A writer with ``put_at(idx, name, seq, qual)`` (a sharded rank's)
     gets each record with its hole's index in ``stream``; others get
     ``put``.
+
+    ``devices`` are the refine executor's logical devices (default: this
+    host's, utils/device.local_devices); the strand walk's pair fills run
+    on ``device`` alone, as the JAX package's PairExecutor is not sharded.
 
     Under the serving plane (pipeline/serve.py) a job passes the server's
     ``warm`` (a WarmupCompiler that lives as long as the server: used, not
@@ -1761,7 +2097,8 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     # refine steps strike one breaker; a served job builds its own from its
     # config, so a tenant that wedges the card trips only its own
     resil = resil_mod.Resilience(cfg, metrics=metrics)
-    executor = BatchExecutor(cfg, device, metrics, warmup=warm, resil=resil)
+    executor = BatchExecutor(cfg, device, metrics, warmup=warm, resil=resil,
+                             devices=devices)
     pair_executor = PairExecutor(cfg.align, quant=cfg.len_bucket_quant,
                                  device=device, metrics=metrics,
                                  prefilter=cfg.prefilter,
@@ -2001,3 +2338,19 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
         # outlives the trace file
         if warm is not None and own_warm:
             warm.close()
+
+
+def mesh_precheck(cfg: CcsConfig, device) -> int:
+    """0 when cfg.mesh_shape is feasible (or unset) on this host's devices
+    for ``device``; 1 after an "invalid --mesh" message.  run.run_pipeline
+    calls it for every batched run, a sharded rank's and a fleet range's
+    included, before any output file opens."""
+    if cfg.mesh_shape is None:
+        return 0
+    try:
+        BatchExecutor.validate_mesh(cfg.mesh_shape,
+                                    len(device_mod.local_devices(device)))
+    except ValueError as e:
+        print(f"Error: invalid --mesh: {e}", file=sys.stderr)
+        return 1
+    return 0

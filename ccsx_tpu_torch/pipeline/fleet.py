@@ -278,8 +278,9 @@ def _run_range(d: str, state: dict, cfg: CcsConfig, i: int,
                worker: str, inflight: Optional[int] = None,
                shared=None) -> int:
     """Range i through ``run.run_pipeline`` (the device, the kernels, the
-    Metrics, the guard and the exit codes are its), with the range's
-    stream, journal and shard writer opened by its ``open_io``."""
+    mesh precheck, the Metrics, the guard and the exit codes are its), with
+    the range's stream, journal and shard writer opened by its
+    ``open_io``, which a bad --mesh never reaches."""
     from ccsx_tpu_torch.pipeline.run import run_pipeline
 
     in_path, out_path = state["input"], state["output"]

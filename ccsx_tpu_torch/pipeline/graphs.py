@@ -24,18 +24,21 @@ output, and, on the card, the graph.  Its life:
 
 * build, once per key, one build at a time in the process: the priming
   run (when asked for) on the all-zero inputs, then the capture, both on
-  the device's one capture stream, in thread-local capture mode, so that
+  the lane's one capture stream, in thread-local capture mode, so that
   other threads (the driver, the prep pool's pump) go on launching on the
-  default stream while a warmup thread captures.  Every program of a
-  device captures into ONE shared memory pool: a replay's intermediates
-  are dead when it ends, and each program's static output stays allocated
-  for its life, but a program captured later may hold its static output
-  where an earlier one keeps intermediates (and the reverse), so a replay
-  of one program clobbers the other's output.  Every replay therefore
-  runs on its caller's stream (the driver's and the warmup thread's are
-  the device's default stream) with its clone of the static output, under
-  one lock of the process: no replay of another program, from any thread,
-  comes between a replay and its clone;
+  default stream while a warmup thread captures.  A lane is a logical
+  device of a mesh (parallel/mesh.py; lane 0 without one), and every
+  program of a lane captures into ONE shared memory pool: a replay's
+  intermediates are dead when it ends, and each program's static output
+  stays allocated for its life, but a program captured later may hold its
+  static output where an earlier one keeps intermediates (and the
+  reverse), so a replay of one program clobbers the other's output.  Every
+  replay therefore runs on its caller's stream (for lane 0 the device's
+  default stream, on the driver and the warmup thread; under a mesh the
+  entry's own stream) with its clone of the static output, under one lock
+  of the process: no replay of another program, from any thread, comes
+  between a replay and its clone.  Two lanes on one card replay on two
+  streams at once, so they never share a pool;
 * ``run``: copy the caller's host buffers into the static inputs, replay,
   and clone the static output, all on the caller's current stream and
   under the program's lock, so two slabs of one shape in flight never see
@@ -97,8 +100,9 @@ CAPTURE_AT = 2
 _programs: Dict[tuple, "Program"] = {}
 # key -> [its step, dispatches taken, eager dispatches completed]
 _eager: Dict[tuple, list] = {}
-_pools: Dict[int, tuple] = {}     # card index -> its programs' shared pool
-_streams: Dict[int, "torch.cuda.Stream"] = {}   # card index -> capture stream
+# (card index, lane) -> its programs' shared pool, and its capture stream
+_pools: Dict[tuple, tuple] = {}
+_streams: Dict[tuple, "torch.cuda.Stream"] = {}
 _lock = threading.Lock()          # the cache and the stats
 _build_lock = threading.Lock()    # one build (and capture) at a time
 # a graph replay and the clone of its static output, one pair at a time
@@ -125,11 +129,13 @@ class Program:
     """One step at one shape (see the module docstring).  ``step(*inputs)``
     returns one tensor; ``specs`` are the inputs' (shape, dtype);
     ``prime``: run the step once on the zero inputs before the capture
-    (False when eager dispatches of the same step object already did)."""
+    (False when eager dispatches of the same step object already did);
+    ``lane``: the logical device whose pool and capture stream it uses."""
 
     def __init__(self, key, step: Callable, specs: Sequence[Tuple],
-                 device, prime: bool = True):
+                 device, prime: bool = True, lane: int = 0):
         self.key = key
+        self.lane = lane
         self.device = torch.device(device)
         self.step = step
         self.inputs = [torch.zeros(shape, dtype=dtype, device=self.device)
@@ -148,8 +154,8 @@ class Program:
 
     def _capture(self, prime: bool) -> None:
         dev = self.device
-        card = dev.index if dev.index is not None else \
-            torch.cuda.current_device()
+        card = (dev.index if dev.index is not None else
+                torch.cuda.current_device(), self.lane)
         side = _streams.get(card)
         if side is None:
             side = _streams[card] = torch.cuda.Stream(dev)
@@ -244,10 +250,11 @@ class Program:
 
 
 def program(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
-            device, prime: bool = True) -> Program:
+            device, prime: bool = True, lane: int = 0) -> Program:
     """The cached program of ``key``, built on first request from
     ``make_step()``; one build at a time in the process, each key once.
-    ``key`` must hold everything the step's closure depends on."""
+    ``key`` must hold everything the step's closure depends on, the lane
+    included."""
     with _lock:
         p = _programs.get(key)
     if p is not None:
@@ -259,7 +266,7 @@ def program(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
             return p
         t0 = time.perf_counter()
         try:
-            p = Program(key, make_step(), specs, device, prime)
+            p = Program(key, make_step(), specs, device, prime, lane)
         except (cuda_ext.KernelError, torch.cuda.OutOfMemoryError):
             raise
         except Exception as e:
@@ -278,10 +285,10 @@ def program(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
 
 
 def dispatch(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
-             device, *host: torch.Tensor) -> torch.Tensor:
+             device, *host: torch.Tensor, lane: int = 0) -> torch.Tensor:
     """The step of ``key`` on ``host`` (as Program.run): an eager run for
     the shape's first ``CAPTURE_AT - 1`` dispatches, then its program,
-    built at the next from the step those eager runs used."""
+    built at the next from the step those eager runs used, in ``lane``."""
     with _lock:
         p = _programs.get(key)
         seen = _eager.get(key) if p is None else None
@@ -299,7 +306,8 @@ def dispatch(key, make_step: Callable[[], Callable], specs: Sequence[Tuple],
         if n + 1 < CAPTURE_AT:
             return _run_eager(key, seen, device, host)
         # no priming where an eager run of this step came first
-        p = program(key, lambda: seen[0], specs, device, prime=not seen[2])
+        p = program(key, lambda: seen[0], specs, device, prime=not seen[2],
+                    lane=lane)
     return p.run(*host)
 
 

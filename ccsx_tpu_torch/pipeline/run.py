@@ -411,10 +411,10 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     at the end whatever the exit path), the Tracer (``--trace``,
     ``--stall-timeout``), installed for the run, and the drain guard
     (SIGTERM/SIGINT).  rc 1: no card, a kernel that cannot build, an
-    unreadable input, an unwritable output or trace path, an invalid input
-    stream, a failed write, a device fault; rc 2: the
-    ``--max-failed-holes`` budget was exceeded; rc 75: drained by a signal,
-    resumable with the same command.  ``cfg.telemetry_port`` serves the
+    unreadable input, an unwritable output or trace path, an invalid
+    ``--mesh`` for a batched run, an invalid input stream, a failed write,
+    a device fault; rc 2: the ``--max-failed-holes`` budget was exceeded;
+    rc 75: drained by a signal, resumable with the same command.  ``cfg.telemetry_port`` serves the
     live endpoints (utils/telemetry.py) for the run's length; a port that
     cannot be bound is a warning, never a failed run."""
     try:
@@ -438,6 +438,14 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         except (cuda_ext.KernelError, OSError) as e:
             print(f"Error: the CUDA kernels cannot be loaded: {e}",
                   file=sys.stderr)
+            return exitcodes.RC_FATAL
+    if batched:
+        from ccsx_tpu_torch.pipeline import batch as batch_mod
+
+        # a bad --mesh must not touch an existing output or shard file:
+        # checked before open_io opens anything (a sharded rank's and a
+        # fleet range's too, which come through here)
+        if batch_mod.mesh_precheck(cfg, device):
             return exitcodes.RC_FATAL
     # constructed before the stream, which books its filtered holes here
     if metrics is None:
@@ -483,8 +491,6 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
 
                 telem = telemetry.start(metrics, cfg.telemetry_port)
         if batched:
-            from ccsx_tpu_torch.pipeline import batch as batch_mod
-
             batch_mod.drive_batched(
                 stream, writer, cfg, device, metrics, journal, inflight,
                 admission=getattr(shared, "admission", None),

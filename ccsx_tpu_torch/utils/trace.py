@@ -220,15 +220,20 @@ class Span:
         until the CUDA work of this span's step has run, by
         synchronising the current stream of the device that holds the
         first CUDA tensor in ``out`` (a tensor, or a tuple/list/dict of
-        tensors and arrays).  The identity otherwise — no CUDA tensor in
-        ``out``, or no trace file — so an untraced run keeps the launch
-        queue and adds no synchronisation.  Never imports torch: a
+        tensors and arrays), or every stream of an ``out`` that has a
+        ``synchronize`` (a mesh step's outputs on several logical devices,
+        parallel/mesh.Placed).  The identity otherwise — no CUDA tensor
+        in ``out``, or no trace file — so an untraced run keeps the
+        launch queue and adds no synchronisation.  Never imports torch: a
         tensor can exist only once torch is loaded."""
         if self.tracer is not None and self.tracer.forced:
             torch = sys.modules.get("torch")
             stack = [out] if torch is not None else []
             while stack:
                 x = stack.pop()
+                if hasattr(x, "synchronize"):
+                    x.synchronize()
+                    break
                 if isinstance(x, torch.Tensor):
                     if x.is_cuda:
                         torch.cuda.current_stream(x.device).synchronize()

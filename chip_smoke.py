@@ -5,7 +5,8 @@
                           [--kernels-only | --host-planes-only |
                            --warmup-only [--cold-holes N] | --shards-only |
                            --serve-only | --supervisor-only |
-                           --resilience-only]
+                           --resilience-only | --mesh-only |
+                           --scale-walls N]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -240,7 +241,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    alternating, seven runs each: walls and the host ms of each bounded
    call (quartiles, not gated), and the refine programs' pins equal in
    both arms.  ``--resilience-only`` runs this phase alone after one scale
-   run.
+   run;
+15. the device mesh (parallel/mesh.py), on the scale corpus under inline
+   prep, the card listed several times (``utils/device.local_devices``
+   patched to ``[cuda:0] * k``: each entry a logical device with its own
+   stream).  The single-device runs first, each fill arm's at (a)'s slab
+   budget (``FUSED_ROWS``, where plans hold more slabs than the default
+   budget's at most 2) recording each sweep's slab plan; then (a) the
+   fused packed dispatch at k = 2 and 4 under both fill arms at that
+   budget: the md5, ``fused_waves`` the sum over the plans of ceil(slabs /
+   k), ``fused_slot_fill`` and the slabs as the plans give them, each
+   kernel's launches equal to the single-device run's of its arm, every
+   logical device's launches (``cuda_ext.LANE_LAUNCHES``) above 0 and
+   adding up to them, and every entry's refine programs (its lane's,
+   pipeline/graphs.py) built at an eager dispatch and replayed; then k = 2
+   under ``--warmup`` on an empty program cache: the same, but every
+   entry's programs built and warmed by the warmup plane, none run
+   eagerly; (b) ``--mesh 4,2``, ``2,4`` and ``8,1`` over 8
+   logical devices: the md5, the "pass packing disabled" line, bucketed
+   groups and no slab, and every entry's global-fill and walk launches
+   equal to the bucketed single-device run's (every entry runs every round
+   of its data shard's loop, so the card gets D x P times the launches);
+   (c) the real CLI on the one card with ``--mesh 4,2`` and ``--mesh
+   16,2``: the "--mesh ignored" line, packed slabs, the md5; (d) two CLI
+   ranks on the card under ``--hosts 2 --coordinator 127.0.0.1:PORT`` (a
+   gloo process group), merged to the md5, with each rank's start-up
+   (process seconds less the run's elapsed seconds).  (e) The walls of (a)
+   and (b) beside the single-device runs', with the card line: reported,
+   not gated, and no multi-GPU figure (the logical devices share one
+   card).  ``--mesh-only`` runs this phase alone after one scale run; the
+   full script runs the fused k = 2 arm (with its single-device run) once
+   after phase 4.  ``--scale-walls N`` runs the scale corpus N times
+   under inline prep after one run and prints the walls: for an A/B of
+   two checkouts in one call, this script copied into the other and the
+   two run in turns.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -2291,9 +2325,10 @@ def step_ab(device, reps=2):
               for k, mk, sp, host in recorded if k[0] == "refine_packed"]
     eager = []
     for prog, _ in packed:
-        # the key: the shape, the arm, then graphs.config_key's fields
-        (_, qmax, tmax, iters, R, H, bimpl, align, max_ins,
-         *bp) = prog.key[:14]
+        # the key: the shape, the arm, the lanes a build warms (D), then
+        # graphs.config_key's fields
+        (_, qmax, tmax, iters, R, H, bimpl, _, align, max_ins,
+         *bp) = prog.key[:15]
         eager.append(batch._refine_step_packed(
             AlignParams(*align), max_ins, tmax, iters, H, tuple(bp[:5]),
             (R, qmax), "rotband" if bimpl == "rotband" else ""))
@@ -4346,6 +4381,246 @@ def phase_resilience(device):
     return rec
 
 
+MESH_SHAPES = ((4, 2), (2, 4), (8, 1))
+# phase 15 (a)'s slab budget: at the default 128 rows SCALE64's plans hold
+# at most 2 slabs, so a wave of 4 would leave entries idle; at this one
+# every entry of a wave of 4 takes slabs of a shape several times (eager,
+# capture, replays)
+FUSED_ROWS = ["--slab-rows", "16"]
+
+
+def logical_devices(k):
+    """For the duration, the port sees the card ``k`` times
+    (utils/device.local_devices): ``k`` logical devices, each with its own
+    stream."""
+    import contextlib
+
+    import torch
+
+    from ccsx_tpu_torch.utils import device as device_mod
+
+    @contextlib.contextmanager
+    def patched():
+        real = device_mod.local_devices
+        device_mod.local_devices = lambda device: [torch.device("cuda",
+                                                                0)] * k
+        try:
+            yield
+        finally:
+            device_mod.local_devices = real
+    return patched()
+
+
+def captured(fn, *a, **k):
+    """fn(*a, **k) with its stderr captured and echoed; (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            out = fn(*a, **k)
+    finally:
+        sys.stderr.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def lanes_now():
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    return {i: dict(v) for i, v in sorted(cuda_ext.LANE_LAUNCHES.items())}
+
+
+def planned(device, extra):
+    """One single-device run of the scale corpus under ``extra``: (its
+    phase_scale64 record, the slab count of each (sweep, group) plan).
+    Each sweep's shape groups plan their slabs once (a single-device
+    dispatch never plans again)."""
+    from ccsx_tpu_torch.pipeline import pack as pack_mod
+
+    plans = []
+    real_plan = pack_mod.plan_slabs
+
+    def recording(*a, **k):
+        plan = real_plan(*a, **k)
+        plans.append(len(plan))
+        return plan
+
+    pack_mod.plan_slabs = recording
+    try:
+        return phase_scale64(device, extra), plans
+    finally:
+        pack_mod.plan_slabs = real_plan
+
+
+def lane_programs(stats):
+    """lane -> the summed stats of its packed refine programs (a fused
+    program's key ends with its lane, graphs.py; lane 0 is a single
+    device's)."""
+    out = {}
+    for key, v in stats.items():
+        if key[0] != "refine_packed":
+            continue
+        ln = key[-1] if isinstance(key[-1], int) else 0
+        acc = out.setdefault(ln, {"builds": 0, "eager": 0, "replays": 0,
+                                  "warm_replays": 0})
+        for name in acc:
+            acc[name] += v[name]
+    return out
+
+
+def fused_arm(device, k, extra, plans, ref):
+    """One fused run of the scale corpus over k logical devices (phase
+    15 (a)): its record; raises on a broken pin.  Every entry launches
+    kernels and replays its own captured programs; under ``--warmup`` the
+    warmup plane built every program a wave ran (no eager dispatch) and
+    warmed each on its entry."""
+    with logical_devices(k):
+        secs, counts, driver = phase_scale64(device, extra)
+    lanes = lanes_now()
+    progs = lane_programs(LAST["graphs"])
+    waves = sum(-(-n // k) for n in plans)
+    problems = []
+    if sorted(progs) != list(range(1, k + 1)):
+        problems.append(f"refine programs of lanes {sorted(progs)}")
+    warm = "--warmup" in extra
+    for ln, v in progs.items():
+        if not v["replays"] or not v["builds"] or (
+                v["eager"] if warm else not v["eager"]) or (
+                warm and not v["warm_replays"]):
+            problems.append(f"lane {ln} programs {v}")
+    if driver["fused_waves"] != waves:
+        problems.append(f"fused_waves {driver['fused_waves']} != {waves}")
+    fill = round(sum(plans) / (k * waves), 4)
+    if driver["fused_slot_fill"] != fill or driver["slabs"] != sum(plans):
+        problems.append(f"fused_slot_fill {driver['fused_slot_fill']} / "
+                        f"slabs {driver['slabs']} != {fill} / {sum(plans)}")
+    if counts != ref[1]:
+        problems.append(f"launches {counts} != one device's {ref[1]}")
+    for name in ("banded_global", "banded_rotband", "traceback_walk"):
+        if sum(v[name] for v in lanes.values()) != counts[name]:
+            problems.append(f"{name}: lanes {lanes} do not add up to "
+                            f"{counts[name]}")
+    if sorted(lanes) != list(range(k)) or not all(
+            v["traceback_walk"] for v in lanes.values()):
+        problems.append(f"lanes {lanes} for k = {k}")
+    if problems:
+        raise AssertionError(f"phase 15 fused k={k} {extra}: {problems}")
+    print(f"[chip_smoke] phase 15 fused k={k} {extra}: {secs:.3f}s, "
+          f"{waves} waves, entries' launches {lanes}, lanes' programs "
+          f"{progs}", flush=True)
+    return {"seconds": secs, "fused_waves": waves, "fused_slots": k * waves,
+            "slabs": sum(plans), "launches": counts,
+            "lane_launches": lanes, "lane_programs": progs}
+
+
+def mesh_arm(device, shape, ref):
+    """The scale corpus under --mesh D,P over D x P logical devices
+    (phase 15 (b)): its record; raises on a broken pin."""
+    from ccsx_tpu_torch.ops import cuda_ext
+
+    bam = os.path.join(WORK, "in64.bam")
+    out = os.path.join(WORK, "mesh64.fa")
+    d, p = shape
+    with logical_devices(d * p):
+        (secs, counts, driver), text = captured(
+            run_cli, ["--device", device, *INLINE, "--mesh", f"{d},{p}",
+                      bam, out], f"--mesh {d},{p} over {d * p} entries")
+    lanes = lanes_now()
+    md5 = _md5(open(out, "rb").read())
+    problems = []
+    if md5 != SCALE64_MD5:
+        problems.append(f"md5 {md5}")
+    if "pass packing disabled under --mesh" not in text:
+        problems.append("no 'pass packing disabled' line")
+    if driver["slabs"] or not driver["bucketed_groups"]:
+        problems.append(f"grouping slabs {driver['slabs']}, bucketed "
+                        f"{driver['bucketed_groups']}")
+    for name in ("banded_global", "traceback_walk"):
+        per = [lanes.get(i, {}).get(name, 0) for i in range(d * p)]
+        if per != [ref[1][name]] * (d * p):
+            problems.append(f"{name}: entries {per} != the bucketed single "
+                            f"device's {ref[1][name]} each")
+        if counts[name] != d * p * ref[1][name]:
+            problems.append(f"{name}: {counts[name]} launches")
+    if counts["banded_local"] != ref[1]["banded_local"] or \
+            counts["banded_rotband"]:
+        problems.append(f"launches {counts}")
+    if problems:
+        raise AssertionError(f"phase 15 --mesh {d},{p}: {problems}")
+    print(f"[chip_smoke] phase 15 --mesh {d},{p}: {secs:.3f}s, md5 {md5}, "
+          f"entries' launches {lanes}", flush=True)
+    return {"seconds": secs, "md5": md5, "launches": counts,
+            "lane_launches": lanes,
+            "bucketed_dispatches": driver["bucketed_dispatches"]}
+
+
+def phase_mesh(device):
+    """Phase 15: the device mesh on one card (see the module docstring)."""
+    from ccsx_tpu_torch.pipeline import graphs
+
+    rec = {"card": card_line()}
+    rot = ["--banded-impl", "rotband"]
+    # the single-device runs, (a)'s at its slab budget with their plans
+    one, plans = {}, {}
+    for arm, extra in (("default", []), ("rotband", rot)):
+        one[arm], plans[arm] = planned(device, INLINE + FUSED_ROWS + extra)
+    one["default_128"] = phase_scale64(device, INLINE)
+    one["bucketed"] = phase_scale64(device, INLINE + BUCKETS)
+    rec["plans"] = {"slab_rows": int(FUSED_ROWS[1]),
+                    "groups": len(plans["default"]),
+                    "slabs": sum(plans["default"]),
+                    "max_slabs_per_group": max(plans["default"]),
+                    "groups_of_4_or_more": sum(
+                        n >= 4 for n in plans["default"])}
+    rec["fused"] = {f"k{k}_{arm}": fused_arm(
+        device, k, INLINE + FUSED_ROWS + extra, plans[arm], one[arm])
+        for k in (2, 4) for arm, extra in (("default", []),
+                                           ("rotband", rot))}
+    # the warmup plane builds and warms every entry's programs (k = 2's
+    # were built by the run above: dropped first)
+    graphs.clear()
+    rec["fused"]["k2_warmup"] = fused_arm(
+        device, 2, INLINE + FUSED_ROWS + ["--warmup"], plans["default"],
+        one["default"])
+    rec["mesh"] = {f"{d},{p}": mesh_arm(device, (d, p), one["bucketed"])
+                   for d, p in MESH_SHAPES}
+    # (c) the real CLI: one visible card ignores --mesh
+    rec["one_card"] = {}
+    for flag in ("4,2", "16,2"):
+        (secs, counts, driver), text = captured(
+            phase_scale64, device, INLINE + ["--mesh", flag])
+        if counts != one["default_128"][1]:
+            raise AssertionError(f"phase 15 --mesh {flag} on one card: "
+                                 f"launches {counts}")
+        if "--mesh ignored: single device visible" not in text:
+            raise AssertionError(f"phase 15 --mesh {flag} on one card: no "
+                                 "'--mesh ignored' line")
+        rec["one_card"][flag] = {"seconds": secs, "launches": counts}
+    # (d) two ranks joined by a gloo process group
+    port = free_ports(1)
+    pair = shard_pair(device, os.path.join(WORK, "in64.bam"),
+                      os.path.join(WORK, "coord.fa"),
+                      extra=INLINE + ["--coordinator", f"127.0.0.1:{port}"])
+    if pair["md5"] != SCALE64_MD5:
+        raise AssertionError(f"phase 15 --coordinator: merged md5 "
+                             f"{pair['md5']}")
+    rec["coordinator"] = {
+        "md5": pair["md5"], "merge_s": pair["merge_s"],
+        "ranks": [{"process_s": r["process_s"],
+                   "elapsed_s": r["elapsed_s"],
+                   "startup_s": r["process_s"] - r["elapsed_s"],
+                   "launches": r["launches"]} for r in pair["ranks"]]}
+    # (e) walls, not gated: the logical devices share one card
+    rec["walls_s"] = {"one_device": {k: v[0] for k, v in one.items()}}
+    rec["walls_s"].update({k: v["seconds"] for k, v in rec["fused"].items()})
+    rec["walls_s"].update({f"mesh {k}": v["seconds"]
+                           for k, v in rec["mesh"].items()})
+    print("[chip_smoke] phase 15 walls (" + rec["card"] + "): "
+          + json.dumps(rec["walls_s"]), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4388,6 +4663,15 @@ def main(argv=None) -> int:
                          "(the resilience plane: dispatch deadlines, the "
                          "circuit breaker, a served job's hang) alone, "
                          "printing its record")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, run the scale corpus once, then phase 15 "
+                         "(the device mesh: fused logical devices, --mesh, "
+                         "--coordinator) alone, printing its record")
+    ap.add_argument("--scale-walls", type=int, default=0, metavar="N",
+                    help="build, run the scale corpus once, then N more "
+                         "times under inline prep, printing the walls (for "
+                         "an A/B: this script copied into another checkout "
+                         "and run there in turns with this one's)")
     ap.add_argument("--cold-holes", type=int, default=0, metavar="N",
                     help="with --warmup-only: also two cold CLI processes "
                          "of each dispatch arm on a corpus of N holes")
@@ -4424,6 +4708,14 @@ def main(argv=None) -> int:
                 print(f"[chip_smoke] ptxas {src}: {line.strip()}")
     print(f"[chip_smoke] build: {secs:.1f}s for {len(cuda_ext.SOURCES)} "
           "sources", flush=True)
+    if args.scale_walls:
+        phase_scale64("cuda", INLINE)
+        walls = [phase_scale64("cuda", INLINE)[0]
+                 for _ in range(args.scale_walls)]
+        print(json.dumps({"scale_walls": {
+            "checkout": HERE, "card": card, "walls_s": walls,
+            "median_s": statistics.median(walls)}}))
+        return 0
     nstate = native_state()
     if args.host_planes_only:
         phase_scale64("cuda", INLINE)
@@ -4446,6 +4738,10 @@ def main(argv=None) -> int:
     if args.resilience_only:
         phase_scale64("cuda", INLINE)
         print(json.dumps({"resilience": phase_resilience("cuda")}))
+        return 0
+    if args.mesh_only:
+        phase_scale64("cuda", INLINE)
+        print(json.dumps({"mesh": phase_mesh("cuda")}))
         return 0
     if args.warmup_only:
         phase_scale64("cuda", INLINE)
@@ -4489,6 +4785,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"SCALE64 pooled: launches {counts} miss a "
                                  "kernel of the default arm")
     runs = {k: rr[0] for k, rr in reps.items()}
+    # the fused packed dispatch over two logical devices on the card at
+    # phase 15 (a)'s slab budget (phase 15 runs the rest under
+    # --mesh-only): the md5, the single-device run's launches, split
+    # between the two, each replaying its own programs
+    ref, plans = planned("cuda", INLINE + FUSED_ROWS)
+    fused2 = fused_arm("cuda", 2, INLINE + FUSED_ROWS, plans, ref)
     # the bucketed path under the other global-fill arm, once
     buck_rot = phase_scale64("cuda", arms["rotband"] + BUCKETS)
     prof = phase_profile("cuda", INLINE)
@@ -4569,7 +4871,8 @@ def main(argv=None) -> int:
                       "shards": shards,
                       "serve": served,
                       "supervisor": supervised,
-                      "resilience": resil}))
+                      "resilience": resil,
+                      "fused_2_logical": fused2}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -689,7 +689,8 @@ def test_dispatch_runs_eagerly_then_replays_a_graph(cuda, monkeypatch):
     assert cuda_ext.LAUNCHES["banded_global"] == 9
     assert cuda_ext.LAUNCHES["traceback_walk"] == 9
     prog = graphs._programs[spec[0]]
-    assert tuple(prog.graph.pool()) == tuple(graphs._pools[0])
+    # the pool of card 0's lane 0 (the executor without a mesh)
+    assert tuple(prog.graph.pool()) == tuple(graphs._pools[(0, 0)])
     for out, args in zip(outs, slabs):
         step = batch._refine_step_packed(AlignParams(), 4, 2560, 2, H,
                                          ex._bp_consts(), (R, 1024))
@@ -743,3 +744,118 @@ def test_oom_inside_a_capture_resplits_with_the_same_bytes(
     assert "replaying" not in err and "device failure" not in err
     assert out.read_bytes() == ref.read_bytes()
     assert any(v["graph"] and v["replays"] for v in graphs.stats().values())
+
+
+# ---- logical devices on the card (parallel/mesh.py) -------------------------
+
+def _window_requests(rng, cfg, kind, specs=((3, 500), (5, 500), (9, 500),
+                                            (11, 500), (6, 700))):
+    sm = star.StarMsa(cfg.align, device="cpu")
+    out = []
+    for n, tlen in specs:
+        tpl = rng.integers(0, 4, tlen).astype(np.uint8)
+        ps = [synth.mutate(rng, tpl, 0.03, 0.03, 0.03) for _ in range(n)]
+        qs, qlens, mask = sm.pack(ps, cfg.pass_buckets, cfg.max_passes)
+        out.append(kind(qs, qlens, mask, ps[0], 2))
+    return out
+
+
+def _same_refine(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.draft, w.draft)
+        assert (g.rr.tlen, g.rr.bp) == (w.rr.tlen, w.rr.bp)
+        for name in ("cons", "ins_base", "ins_votes", "ncov", "nwin",
+                     "advance"):
+            np.testing.assert_array_equal(getattr(g.rr, name),
+                                          getattr(w.rr, name), err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["", "rotband"])
+def test_two_logical_devices_fused_match_one_device(impl, cuda):
+    """``[cuda:0] * 2``: a wave's two slabs on two streams of the card, each
+    with its own refine programs and pool, twice over (eager, then a
+    capture and replays), give one device's results; each logical device
+    launches the kernels of its own slabs."""
+    cfg = CcsConfig(is_bam=False, slab_rows=16, banded_impl=impl)
+    reqs = _window_requests(np.random.default_rng(21), cfg,
+                            star.RefineRequest)
+    cuda0 = torch.device("cuda", 0)
+    want = batch.BatchExecutor(cfg, device="cuda", devices=[cuda0]).run(
+        list(reqs))
+    fill = "banded_rotband" if impl else "banded_global"
+    for _ in range(3):
+        cuda_ext.reset_counts()
+        got = batch.BatchExecutor(cfg, device="cuda",
+                                  devices=[cuda0] * 2).run(list(reqs))
+        _same_refine(got, want)
+        lanes = cuda_ext.LANE_LAUNCHES
+        assert sorted(lanes) == [0, 1]
+        assert sum(v[fill] for v in lanes.values()) == \
+            cuda_ext.LAUNCHES[fill] > 0
+        assert all(v[fill] == v["traceback_walk"] > 0
+                   for v in lanes.values())
+
+
+def test_two_logical_devices_fused_warmup_match_one_device(cuda):
+    """``[cuda:0] * 2`` under --warmup: the warmup thread builds and warms
+    each shape's program on both logical devices, each on its own stream
+    and pool, while the driver waits for it; no wave runs eagerly and the
+    results are one device's."""
+    from ccsx_tpu_torch.pipeline import graphs
+    from ccsx_tpu_torch.pipeline.warmup import WarmupCompiler
+
+    cfg = CcsConfig(is_bam=False, slab_rows=16)
+    reqs = _window_requests(np.random.default_rng(23), cfg,
+                            star.RefineRequest)
+    cuda0 = torch.device("cuda", 0)
+    want = batch.BatchExecutor(cfg, device="cuda", devices=[cuda0]).run(
+        list(reqs))
+    graphs.clear()
+    graphs.reset_stats()
+    wc = WarmupCompiler()
+    try:
+        ex = batch.BatchExecutor(cfg, device="cuda", warmup=wc,
+                                 devices=[cuda0] * 2)
+        for i, req in enumerate(reqs):
+            ex.warm_refine(req, hole_id=i)
+        got = ex.run(list(reqs))
+    finally:
+        wc.close()
+    _same_refine(got, want)
+    progs = {k: v for k, v in graphs.stats().items()
+             if k[0] == "refine_packed"}
+    assert {k[-1] for k in progs} == {1, 2}
+    assert all(v["graph"] and not v["eager"] and v["warm_replays"]
+               for v in progs.values())
+    assert sum(v["replays"] for v in progs.values()) > 0
+
+
+def test_eight_logical_devices_mesh_match_one_device(cuda):
+    """--mesh 4,2 over ``[cuda:0] * 8``: bare rounds and refine requests
+    equal the single-device bucketed executor's; every entry launches the
+    fill and the walk once a round of its data shard."""
+    cfg = CcsConfig(is_bam=False, mesh_shape=(4, 2))
+    one = CcsConfig(is_bam=False, pass_packing=False)
+    rng = np.random.default_rng(22)
+    cuda0 = torch.device("cuda", 0)
+    refs = _window_requests(rng, cfg, star.RefineRequest)
+    want = batch.BatchExecutor(one, device="cuda", devices=[cuda0]).run(
+        list(refs))
+    cuda_ext.reset_counts()
+    ex = batch.BatchExecutor(cfg, device="cuda", devices=[cuda0] * 8)
+    assert ex._mesh is not None and not ex.packing
+    _same_refine(ex.run(list(refs)), want)
+    per = [v["banded_global"] for _, v in sorted(
+        cuda_ext.LANE_LAUNCHES.items())]
+    assert len(per) == 8 and len(set(per)) == 1 and per[0] > 0
+    rounds = _window_requests(rng, cfg, lambda q, ql, m, d, _:
+                              star.RoundRequest(q, ql, m, d))
+    want = batch.BatchExecutor(one, device="cuda", devices=[cuda0]).run(
+        list(rounds))
+    got = ex.run(list(rounds))
+    for g, w in zip(got, want):
+        assert (g.tlen, g.bp) == (w.tlen, w.bp)
+        for name in ("cons", "ins_base", "ins_votes", "ncov", "nwin",
+                     "advance"):
+            np.testing.assert_array_equal(getattr(g, name),
+                                          getattr(w, name), err_msg=name)

@@ -63,7 +63,9 @@ def test_every_module_imports_without_jax_or_reference():
             "ccsx_tpu_torch.utils.lease", "ccsx_tpu_torch.pipeline.gateway",
             "ccsx_tpu_torch.pipeline.serve",
             "ccsx_tpu_torch.pipeline.fleet",
-            "ccsx_tpu_torch.pipeline.supervisor"} <= set(mods)
+            "ccsx_tpu_torch.pipeline.supervisor",
+            "ccsx_tpu_torch.parallel.mesh",
+            "ccsx_tpu_torch.native.align"} <= set(mods)
     code = _BLOCKER + "\n".join(
         f"import {m}" for m in mods) + "\nimport chip_smoke\n" + (
         "assert not any(k.split('.')[0] in %r for k in sys.modules)\n"
@@ -329,17 +331,42 @@ def _top_level(path, drop=None):
 # module -> (definitions that differ, port-only keys, JAX-only keys, and
 # the symbol whose statements the port drops from a JAX function)
 COPIES = {
-    # the build: g++ on the port's own copy into build/, not make into the
-    # package; the ccsx_align_scalar binding (align_native.cpp is not
-    # ported) is dropped
+    # the build: two g++ calls on the port's own copies into build/ (the
+    # baseline's scalar object, then the library of the three sources),
+    # not make into the package; _bind also types the baseline fill's
+    # entries, which the JAX package's callers type themselves
     "native/__init__.py": (
-        {"_note_failure", "_build", "lib"},
-        {"import hashlib", "import time", "SOURCE", "BUILD_DIR",
-         "CXX_FLAGS", "LIBS",
+        {"_note_failure", "_build", "lib", "_bind"},
+        {"import hashlib", "import time", "SOURCE", "AIDS", "BUILD_DIR",
+         "CXX_FLAGS", "LIBS", "SCALAR_FLAGS", "_unlink",
          "load_state", "_log_path", "_host_key", "target"},
-        {"_SO", "_LOG"},
-        {"_bind": "ccsx_align_scalar"}),
+        {"_SO", "_LOG"}, None),
     "native/io.py": (set(), set(), set(), None),
+    "native/align.py": (set(), set(), set(), None),
+    # the mesh over logical devices (torch devices, one stream each on the
+    # card) instead of jax.sharding: its builders and the sharded round
+    # differ; shard_map_compat (JAX's API split) and shard_batch
+    # (device_put with NamedShardings) have no counterpart; the entries,
+    # the stream scopes and sends, the placed outputs and the per-block
+    # round are the port's
+    "parallel/mesh.py": (
+        {"build_slab_mesh", "build_mesh", "make_sharded_round"},
+        {"import contextlib", "import dataclasses", "import torch",
+         "from typing import Callable", "from typing import List",
+         "from typing import Sequence",
+         "from ccsx_tpu.consensus.star import global_fill",
+         "from ccsx_tpu.ops import cuda_ext", "from ccsx_tpu.ops import msa",
+         "Entry", "Entry.device", "Entry.index", "Entry.stream",
+         "make_entries", "Mesh", "Mesh.shape", "Mesh.devices", "Mesh.flat",
+         "Mesh.entries", "Mesh.axis_names", "scope", "send", "put",
+         "Placed", "Placed.__init__", "Placed.shape", "Placed.synchronize",
+         "Placed.read", "block_rows", "shard_round", "split_passes",
+         "place_blocks"},
+        {"import functools", "import jax", "import jax.numpy",
+         "from jax.sharding import Mesh", "from jax.sharding import "
+         "NamedSharding", "from jax.sharding import PartitionSpec",
+         "from ccsx_tpu.ops import banded", "shard_map_compat",
+         "shard_batch"}, None),
     # the fatal-error hand-off: a device fault met by the pump or a worker
     # is kept for the driver thread, never a quarantined hole; a stream
     # error is raised by emit_ok at a fixed point of the emission order
@@ -366,18 +393,21 @@ COPIES = {
     "utils/telemetry.py": ({"PROM_COUNTERS"}, set(), set(), None),
     "utils/report.py": (set(), set(), set(), None),
     # a rank runs through run.run_pipeline's setup, which owns the
-    # Metrics (no mesh precheck, no device context); no multi-process
-    # control plane
+    # Metrics, the device and the mesh precheck (before open_io opens the
+    # shard); the control plane is a torch.distributed gloo group with a
+    # bounded rendezvous, destroyed when the rank ends
     "parallel/distributed.py": (
-        {"run_pipeline_sharded"}, set(),
-        {"init_distributed", "from ccsx_tpu.utils.metrics import Metrics"},
-        None),
+        {"run_pipeline_sharded", "init_distributed"},
+        {"RENDEZVOUS_TIMEOUT_S", "RendezvousError",
+         "RendezvousError.stmt Pass()", "shutdown_distributed"},
+        {"from ccsx_tpu.utils.metrics import Metrics"}, None),
     # the lease primitive and the spool protocol with its gateway: plain
     # copies
     "utils/lease.py": (set(), set(), set(), None),
     "pipeline/gateway.py": (set(), set(), set(), None),
     # a range runs through run.run_pipeline's setup (its open_io opens the
-    # range's stream, journal and shard writer): no mesh precheck
+    # range's stream, journal and shard writer), whose mesh precheck comes
+    # before open_io
     "pipeline/fleet.py": ({"_run_range"}, set(), set(), None),
     # the serving plane: run.run_pipeline (batched) is the job entry, with
     # RunMetrics; a device fault stops the server
