@@ -66,7 +66,16 @@ each device step (``sketch_screen``, ``seed_device``, ``pair_fill``,
 ``materialize`` span around each device-to-host read, ``host_replay`` spans
 and ``recover`` instants on the ladder, and the driver's ``ingest_hole``,
 ``prep_hole``, ``pair_sweep``, ``refine_sweep`` and ``write_record`` spans
-under the matching stage timers.
+under the matching stage timers.  The port's own spans name the rest of
+the driver thread's phases, one a sweep or a dispatch, never one a hole:
+``admit`` (taking holes from the prep plane, its blocked wait inside),
+``emit`` (writing the finished holes in order, ``write_record`` inside),
+and inside ``refine_sweep`` ``plan`` (grouping and the slab plan),
+``slab_pack`` (stacking and staging a slab, one a dispatch), ``unpack``
+(routing a slab's results, one a dispatch) and ``hole_step`` (the
+generators' vote epilogue and next-window draft, one a sweep); a CUDA
+graph build is a ``graph_capture`` span (pipeline/graphs.py).  An open
+in-memory capture (utils/capture.py) keeps them all.
 """
 
 from __future__ import annotations
@@ -1782,7 +1791,6 @@ class BatchExecutor:
         logical device j % D, its own refine programs and stream)."""
         cfg = self.cfg
         M = cfg.max_ins_per_col
-        nrows = [int(r.row_mask.sum()) for r in requests]
         results: List[object] = [None] * len(requests)
         self.metrics.bump(windows=len(requests))
 
@@ -1790,17 +1798,6 @@ class BatchExecutor:
             req = requests[i]
             return refine_host(self._sm.round, req.qs, req.qlens,
                                req.row_mask, req.draft, req.iters)
-
-        shape_groups: Dict[tuple, List[int]] = defaultdict(list)
-        for i, req in enumerate(requests):
-            if nrows[i] == 0:
-                # no live pass-rows (the windowed driver never makes one):
-                # nothing to pack, the per-hole path is its spec
-                self.metrics.bump(host_fallbacks=1)
-                _replay(i, host_one, results, reason="no_rows")
-                continue
-            tmax = _fused_tmax(len(req.draft), self.len_quant)
-            shape_groups[(req.qs.shape[1], tmax, req.iters)].append(i)
 
         fused = self._slab_mesh is not None
         D = len(self._devices)
@@ -1817,34 +1814,49 @@ class BatchExecutor:
                     for s in plan)
             return plan, R, max(1, R // pack_mod.SEG_DIV)
 
-        groups: Dict[tuple, List[int]] = {}
-        sweep_shapes = set()
-        n_slabs = 0
-        for key, idxs in shape_groups.items():
-            slabs = pack_mod.plan_slabs([nrows[i] for i in idxs],
-                                        self.slab_rows)
-            n_slabs += len(slabs)
-            if fused:
-                for w in range(0, len(slabs), D):
-                    chunk = slabs[w:w + D]
-                    wave = [idxs[j] for s in chunk for j in s]
-                    groups[key + (w // D,)] = wave
-                    _, R, _ = plan_wave(wave)
+        # the sweep's grouping and slab plan, in one span
+        with trace.span("plan", cat="compute", n=len(requests)):
+            nrows = [int(r.row_mask.sum()) for r in requests]
+            shape_groups: Dict[tuple, List[int]] = defaultdict(list)
+            for i, req in enumerate(requests):
+                if nrows[i] == 0:
+                    # no live pass-rows (the windowed driver never makes
+                    # one): nothing to pack, the per-hole path is its spec
+                    self.metrics.bump(host_fallbacks=1)
+                    _replay(i, host_one, results, reason="no_rows")
+                    continue
+                tmax = _fused_tmax(len(req.draft), self.len_quant)
+                shape_groups[(req.qs.shape[1], tmax, req.iters)].append(i)
+
+            groups: Dict[tuple, List[int]] = {}
+            sweep_shapes = set()
+            n_slabs = 0
+            for key, idxs in shape_groups.items():
+                slabs = pack_mod.plan_slabs([nrows[i] for i in idxs],
+                                            self.slab_rows)
+                n_slabs += len(slabs)
+                if fused:
+                    for w in range(0, len(slabs), D):
+                        chunk = slabs[w:w + D]
+                        wave = [idxs[j] for s in chunk for j in s]
+                        groups[key + (w // D,)] = wave
+                        _, R, _ = plan_wave(wave)
+                        sweep_shapes.add(key + (R,))
+                        self._count_cells_packed_fused(
+                            requests, wave, key[0], key[2], R, len(chunk),
+                            D)
+                    continue
+                for s_no, slab in enumerate(slabs):
+                    sl_idxs = [idxs[j] for j in slab]
+                    groups[key + (s_no,)] = sl_idxs
+                    R, _ = pack_mod.slab_shape([nrows[i] for i in sl_idxs],
+                                               self.slab_rows,
+                                               ladder=self.slab_ladder)
                     sweep_shapes.add(key + (R,))
-                    self._count_cells_packed_fused(
-                        requests, wave, key[0], key[2], R, len(chunk), D)
-                continue
-            for s_no, slab in enumerate(slabs):
-                sl_idxs = [idxs[j] for j in slab]
-                groups[key + (s_no,)] = sl_idxs
-                R, _ = pack_mod.slab_shape([nrows[i] for i in sl_idxs],
-                                           self.slab_rows,
-                                           ladder=self.slab_ladder)
-                sweep_shapes.add(key + (R,))
-                self._count_cells_packed(requests, sl_idxs, key[0], R,
-                                         key[2])
-        self._warm_sweep_shapes(sweep_shapes)
-        self.metrics.bump(slabs=n_slabs, device_dispatches=len(groups))
+                    self._count_cells_packed(requests, sl_idxs, key[0], R,
+                                             key[2])
+            self._warm_sweep_shapes(sweep_shapes)
+            self.metrics.bump(slabs=n_slabs, device_dispatches=len(groups))
         pin = self.device.type == "cuda"
 
         def label(key):
@@ -1856,9 +1868,10 @@ class BatchExecutor:
             faultinject.fire("device_oom")
             if fused:
                 return dispatch_wave(idxs, key)
-            args = self._stack_slab(requests, idxs, qmax, tmax)
-            R, H = args[0].shape[0], args[4].shape[0]
-            big, small = _pack_slab_args(args, pin=pin)
+            with trace.span("slab_pack", cat="compute", n=len(idxs)):
+                args = self._stack_slab(requests, idxs, qmax, tmax)
+                R, H = args[0].shape[0], args[4].shape[0]
+                big, small = _pack_slab_args(args, pin=pin)
             self._warm_wait(self._warm_key(qmax, tmax, iters, R, H))
             self._note_shape(R, qmax, tmax, iters)
             self.metrics.bump_banded(self.bimpl)
@@ -1880,9 +1893,10 @@ class BatchExecutor:
             # an OOM re-plan may hold more than D slabs: K a device then
             # (the span's shape, as the JAX package's stacked dimension)
             K = -(-len(plan) // D)
-            slabs = [_pack_slab_args(self._stack_slab(
-                requests, [idxs[j] for j in s], qmax, tmax, shape=(R, H)),
-                pin=pin) for s in plan]
+            with trace.span("slab_pack", cat="compute", n=len(idxs)):
+                slabs = [_pack_slab_args(self._stack_slab(
+                    requests, [idxs[j] for j in s], qmax, tmax,
+                    shape=(R, H)), pin=pin) for s in plan]
             self._note_shape(R, qmax, tmax, iters)
             self.metrics.bump_banded(self.bimpl)
             entries = self._slab_mesh.flat
@@ -1931,15 +1945,16 @@ class BatchExecutor:
 
         def finish(idxs, key, out):
             tmax = key[1]
-            if not fused:
-                R, H = pack_mod.slab_shape([nrows[i] for i in idxs],
-                                           self.slab_rows,
-                                           ladder=self.slab_ladder)
-                finish_slab(idxs, tmax, out, R, H)
-                return
-            plan, R, H = plan_wave(idxs)
-            for s, o in zip(plan, out):
-                finish_slab([idxs[j] for j in s], tmax, o, R, H)
+            with trace.span("unpack", cat="compute", n=len(idxs)):
+                if not fused:
+                    R, H = pack_mod.slab_shape([nrows[i] for i in idxs],
+                                               self.slab_rows,
+                                               ladder=self.slab_ladder)
+                    finish_slab(idxs, tmax, out, R, H)
+                    return
+                plan, R, H = plan_wave(idxs)
+                for s, o in zip(plan, out):
+                    finish_slab([idxs[j] for j in s], tmax, o, R, H)
 
         _run_groups_recovering(groups, dispatch, finish, host_one, results,
                                self.metrics, self.max_oom_resplits,
@@ -2120,6 +2135,13 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
     pool = None        # PrepPool, constructed inside the try below
 
     def emit_ready():
+        """Write the finished holes that are next in input order, in one
+        ``emit`` span."""
+        if next_emit in finished:
+            with trace.span("emit", cat="write"):
+                write_ready()
+
+    def write_ready():
         nonlocal next_emit
         while next_emit in finished:
             if pool is not None and not pool.emit_ok(next_emit, emit_lead):
@@ -2184,47 +2206,49 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 # drain whatever prep has finished, up to the window —
                 # never blocking here: with device work pending, the
                 # sweep must run while prep keeps working in background
-                while len(active) < window:
-                    if adm is not None and not adm.try_acquire():
-                        break  # at fair share; sweep what we hold
-                    h = pool.poll()
-                    if h is None:
-                        if adm is not None:
-                            adm.release()  # nothing arrived for it
-                        break
-                    admit(h)
+                with trace.span("admit", cat="host"):
+                    while len(active) < window:
+                        if adm is not None and not adm.try_acquire():
+                            break  # at fair share; sweep what we hold
+                        h = pool.poll()
+                        if h is None:
+                            if adm is not None:
+                                adm.release()  # nothing arrived for it
+                            break
+                        admit(h)
             else:
                 # inline prep (--prep-threads 0): admit up to the window
                 denied = False
-                while (not exhausted and len(active) < window
-                       and next_idx - next_emit < 4 * cap):
-                    if adm is not None and not adm.try_acquire():
-                        denied = True
-                        break  # at fair share; sweep what we hold
-                    try:
-                        with metrics.timer("ingest"), \
-                                trace.span("ingest_hole", cat="ingest"):
-                            z = next(stream)
-                            faultinject.fire("ingest")
-                    except StopIteration:
-                        if adm is not None:
-                            adm.release()
-                        exhausted = True
-                        break
-                    metrics.holes_in += 1
-                    h = _Hole(idx=next_idx, zmw=z)
-                    next_idx += 1
-                    if metrics.holes_in <= resume:
-                        h.done = h.resumed = True
-                    else:
-                        # inline prep is all critical path: its own stage
-                        # and blocked
-                        with metrics.timer("prep"), \
-                                metrics.timer("prep_blocked"), \
-                                trace.span("prep_hole", cat="prep",
-                                           hole=str(z.hole)):
-                            _start_hole(h, cfg)
-                    admit(h)
+                with trace.span("admit", cat="host"):
+                    while (not exhausted and len(active) < window
+                           and next_idx - next_emit < 4 * cap):
+                        if adm is not None and not adm.try_acquire():
+                            denied = True
+                            break  # at fair share; sweep what we hold
+                        try:
+                            with metrics.timer("ingest"), \
+                                    trace.span("ingest_hole", cat="ingest"):
+                                z = next(stream)
+                                faultinject.fire("ingest")
+                        except StopIteration:
+                            if adm is not None:
+                                adm.release()
+                            exhausted = True
+                            break
+                        metrics.holes_in += 1
+                        h = _Hole(idx=next_idx, zmw=z)
+                        next_idx += 1
+                        if metrics.holes_in <= resume:
+                            h.done = h.resumed = True
+                        else:
+                            # inline prep is all critical path: its own
+                            # stage and blocked
+                            with metrics.timer("prep"), \
+                                    metrics.timer("prep_blocked"), \
+                                    trace.span("prep_hole", cat="prep",
+                                               hole=str(z.hole)):
+                                _start_hole(h, cfg)
+                        admit(h)
             admitted_full = len(active) >= window
             emit_ready()
             if not active:
@@ -2247,34 +2271,35 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 # first hole the instant it appears would fragment the
                 # sweep into near-empty slabs); the moment prep pauses
                 # with work in hand, or the window fills, sweep it
-                while len(active) < window and not pool.drained():
-                    if adm is not None and not adm.try_acquire():
-                        # at fair share while another job wants the
-                        # window: wait on the admission condition (a
-                        # release anywhere re-checks), not on the pool
-                        adm.wait(0.05 if active else 0.2)
+                with trace.span("admit", cat="host"):
+                    while len(active) < window and not pool.drained():
+                        if adm is not None and not adm.try_acquire():
+                            # at fair share while another job wants the
+                            # window: wait on the admission condition (a
+                            # release anywhere re-checks), not on the pool
+                            adm.wait(0.05 if active else 0.2)
+                            emit_ready()
+                            if active:
+                                break
+                            metrics.heartbeat()
+                            continue
+                        # only the wait itself books as blocked — emission
+                        # has its own stage
+                        with metrics.timer("prep_blocked"):
+                            h = pool.get(timeout=0.05 if active else 1.0)
+                        # emit as we accumulate: instantly-done holes
+                        # (resumed/skipped) must retire here to keep releasing
+                        # ingest budget, or a done stretch longer than the 4x
+                        # bound live-locks against the pool
                         emit_ready()
-                        if active:
-                            break
-                        metrics.heartbeat()
-                        continue
-                    # only the wait itself books as blocked — emission
-                    # has its own stage
-                    with metrics.timer("prep_blocked"):
-                        h = pool.get(timeout=0.05 if active else 1.0)
-                    # emit as we accumulate: instantly-done holes
-                    # (resumed/skipped) must retire here to keep releasing
-                    # ingest budget, or a done stretch longer than the 4x
-                    # bound live-locks against the pool
-                    emit_ready()
-                    if h is None:
-                        if adm is not None:
-                            adm.release()
-                        if active:
-                            break
-                        metrics.heartbeat()
-                        continue
-                    admit(h)
+                        if h is None:
+                            if adm is not None:
+                                adm.release()
+                            if active:
+                                break
+                            metrics.heartbeat()
+                            continue
+                        admit(h)
                 # a window filled while blocked still earns growth
                 admitted_full = len(active) >= window
                 metrics.heartbeat()
@@ -2299,9 +2324,12 @@ def drive_batched(stream, writer, cfg: CcsConfig, device,
                 with metrics.timer("compute"), \
                         trace.span("refine_sweep", cat="compute",
                                    n=len(round_holes)):
-                    for h, rr in zip(round_holes, executor.run(
-                            [h.req for h in round_holes])):
-                        _feed_hole(h, rr)
+                    results = executor.run([h.req for h in round_holes])
+                    # the generators' vote epilogue and next-window draft
+                    with trace.span("hole_step", cat="compute",
+                                    n=len(round_holes)):
+                        for h, rr in zip(round_holes, results):
+                            _feed_hole(h, rr)
             still: List[_Hole] = []
             for h in active:
                 if h.done:

@@ -91,6 +91,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 
 from ccsx_tpu_torch.ops import cuda_ext
+from ccsx_tpu_torch.utils import trace
 
 # The dispatch of a shape that builds its program; those before it run the
 # step eagerly.  2: a shape's first slab runs eagerly, its second captures
@@ -148,7 +149,9 @@ class Program:
         self.build_parts: Dict[str, float] = {}
         self._lock = threading.Lock()
         if self.device.type == "cuda":
-            self._capture(prime)
+            # a shape built inside a measured window shows by name
+            with trace.span("graph_capture", cat="compute"):
+                self._capture(prime)
         elif prime:
             self.out = self.step(*self.inputs)
 

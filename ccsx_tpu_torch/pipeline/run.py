@@ -43,7 +43,7 @@ from ccsx_tpu_torch.io import bam as bam_mod
 from ccsx_tpu_torch.io import fastx, zmw
 from ccsx_tpu_torch.io.corruption import CorruptionError, SalvageSink
 from ccsx_tpu_torch.ops import cuda_ext
-from ccsx_tpu_torch.utils import faultinject, trace
+from ccsx_tpu_torch.utils import capture, faultinject, trace
 from ccsx_tpu_torch.utils.device import resolve_device
 from ccsx_tpu_torch.utils.drain import DrainGuard
 from ccsx_tpu_torch.utils.journal import Journal
@@ -410,8 +410,10 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     The run owns the Metrics (``--metrics``: JSONL events, the final one
     at the end whatever the exit path), the Tracer (``--trace``,
     ``--stall-timeout``), installed for the run, and the drain guard
-    (SIGTERM/SIGINT).  rc 1: no card, a kernel that cannot build, an
-    unreadable input, an unwritable output or trace path, an invalid
+    (SIGTERM/SIGINT); while torch.profiler records, also an in-memory
+    span capture (utils/capture.py), left on ``metrics.capture``.  rc 1:
+    no card, a kernel that cannot build, an unreadable input, an
+    unwritable output or trace path, an invalid
     ``--mesh`` for a batched run, an invalid input stream, a failed write,
     a device fault; rc 2: the ``--max-failed-holes`` budget was exceeded;
     rc 75: drained by a signal, resumable with the same command.  ``cfg.telemetry_port`` serves the
@@ -475,6 +477,7 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
     # path is refused like an unwritable output path
     tracer = None
     telem = None
+    cap = None
     try:
         if shared is None:
             try:
@@ -486,6 +489,11 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
                       file=sys.stderr)
                 return exitcodes.RC_FATAL
             trace.install(tracer)
+            if capture.profiling():
+                # a profiled run keeps its spans in memory on the
+                # profiler's host clock, so the card's idle gaps can be
+                # named by the host phase they fall in
+                cap = metrics.capture = capture.Capture().open()
             if cfg.telemetry_port:
                 from ccsx_tpu_torch.utils import telemetry
 
@@ -538,6 +546,8 @@ def run_pipeline(in_path: str, out_path: str, cfg: CcsConfig,
         # into it
         if shared is None:
             trace.uninstall()
+        if cap is not None:
+            cap.close()
         if tracer is not None:
             tracer.close()
         # endpoints down before the final event: a scrape never sees a

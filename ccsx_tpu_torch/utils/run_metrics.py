@@ -15,6 +15,10 @@ They ride every snapshot under these names, after the JAX package's keys:
 * ``failed_steps`` — batched device steps whose requests were replayed
   one by one on the per-hole round (each replay counts in the JAX key
   ``host_fallbacks``).
+
+``capture`` is no counter and rides no snapshot: the run's in-memory span
+capture (utils/capture.py) where run.run_pipeline took one (while
+torch.profiler records), else None.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ class RunMetrics(Metrics):
     screen_steps: int = 0
     pair_fills: int = 0
     failed_steps: int = 0
+    capture: object = dataclasses.field(default=None, repr=False,
+                                        compare=False)
 
     def snapshot(self) -> dict:
         snap = super().snapshot()

@@ -1,6 +1,12 @@
 """Dispatch flight recorder: span tracing, first-launch/steady-state
 attribution, and a hang watchdog (a copy of the JAX package's
-utils/trace.py; only ``Span.force`` and the text differ).
+utils/trace.py; ``Span.force``, the text and the recording into the open
+in-memory captures differ).
+
+While a capture is open (utils/capture.py, the port's own), every span
+of the installed tracer is also kept in memory on the host's
+``perf_counter`` clock, with its self time and its thread's CPU time,
+whatever ``--trace`` and ``CCSX_BLACKBOX`` say; a capture forces nothing.
 
 Three pieces:
 
@@ -289,6 +295,12 @@ class Tracer:
         self._tls = threading.local()
         self._f = open(self.path, "w", encoding="utf-8") \
             if self.path else None
+        # the open in-memory captures (utils/capture.py), a list changed
+        # in place: every span records into them, file or no file
+        from ccsx_tpu_torch.utils import capture
+
+        self._capture = capture
+        self._captures = capture.ACTIVE
         if self._f is not None or blackbox.get() is not None:
             # the meta record also opens the blackbox ring's story for
             # file-less tracers (serve's Tracer(None, ...))
@@ -357,11 +369,15 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, cat: str = "host", **args):
         """A plain (non-device) span; records only when a trace file is
-        open or the blackbox ring is armed (CCSX_BLACKBOX)."""
-        if self._f is None and blackbox.get() is None:
+        open, the blackbox ring is armed (CCSX_BLACKBOX) or a capture is
+        open (utils/capture.py)."""
+        write = self._f is not None or blackbox.get() is not None
+        if not write and not self._captures:
             yield _NULL_SPAN
             return
+        caps = tuple(self._captures)
         sp = Span(self, -1, name, cat, args)
+        cpu0 = self._capture.cpu_start(caps) if caps else None
         self._push()
         try:
             yield sp
@@ -373,12 +389,17 @@ class Tracer:
             sp.args = dict(sp.args, error=True)
             raise
         finally:
-            dur = time.perf_counter() - sp.t0
+            end = time.perf_counter()
+            dur = end - sp.t0
             self_s = self._pop(dur)
-            rec = self._span_rec(sp, dur)
-            if self_s < dur - 1e-9:    # had children: carry self time
-                rec["self"] = round(self_s, 6)
-            self._write(rec)
+            if caps:
+                self._capture.keep(caps, name, cat, sp.t0, end, self_s,
+                                   cpu0)
+            if write:
+                rec = self._span_rec(sp, dur)
+                if self_s < dur - 1e-9:    # had children: carry self time
+                    rec["self"] = round(self_s, 6)
+                self._write(rec)
 
     @contextlib.contextmanager
     def device_span(self, name: str, group: Optional[str] = None,
@@ -454,7 +475,8 @@ class Tracer:
             if sp.cid is not None:
                 brec["cid"] = sp.cid
             bb.record(brec)
-        pushed = self._f is not None
+        caps = tuple(self._captures)
+        pushed = self._f is not None or bool(caps)
         if pushed:
             self._push()
         failed = False
@@ -465,10 +487,14 @@ class Tracer:
             sp.args = dict(sp.args, error=True)
             raise
         finally:
-            dur = time.perf_counter() - sp.t0
+            end = time.perf_counter()
+            dur = end - sp.t0
             # device spans are normally leaves (self == dur), but keep
             # the accounting honest if one ever acquires children
             self_s = self._pop(dur) if pushed else dur
+            if caps:
+                self._capture.keep(caps, name, "device", sp.t0, end,
+                                   self_s, None)
             first = False
             executed = False
             with self._lock:

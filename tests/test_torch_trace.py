@@ -8,14 +8,17 @@ Chrome export, the stall watchdog, an unwritable --trace path and an
 unforced group table.  Then what is the port's own: ``Span.force`` is the
 identity unless a trace file is open and a CUDA tensor is in its output;
 the three copied modules (trace, metrics, blackbox) differ from the JAX
-package's only in ``Span.force``, ``resource_gauges`` and text (an AST
-comparison with docstrings and the package prefix normalized away); and
+package's only in ``Span.force``, the tracer's recording into the
+in-memory captures (``Tracer.__init__``, ``Tracer.span``,
+``Tracer.device_span``), ``resource_gauges`` and text (an AST comparison
+with docstrings and the package prefix normalized away); and
 ``stats_main``'s output, ``summarize``'s dict and ``export_chrome``'s JSON
 equal the JAX package's on the same files.  Exact equality throughout,
 apart from the wall-clock bounds the JAX tests themselves use.
 """
 
 import ast
+import collections
 import io
 import json
 import pathlib
@@ -33,7 +36,7 @@ from ccsx_tpu.utils import trace as jtrace
 
 from ccsx_tpu_torch import cli
 from ccsx_tpu_torch.pipeline import batch
-from ccsx_tpu_torch.utils import trace
+from ccsx_tpu_torch.utils import capture, synth, trace
 from ccsx_tpu_torch.utils.metrics import Metrics
 from ccsx_tpu_torch.utils.run_metrics import RunMetrics
 
@@ -460,7 +463,10 @@ def _normalized(path, allowed):
 
 
 @pytest.mark.parametrize("mod,allowed", [
-    ("utils/trace.py", ("Span.force",)),
+    # the port's tracer also records into the open in-memory captures
+    # (utils/capture.py), the port's own
+    ("utils/trace.py", ("Span.force", "Tracer.__init__", "Tracer.span",
+                        "Tracer.device_span")),
     ("utils/metrics.py", ("resource_gauges",)),
     ("utils/blackbox.py", ()),
     # the port's device_oom raises the type its ladder classifies
@@ -606,3 +612,273 @@ def test_profile_flag_writes_a_chrome_trace(tmp_path, monkeypatch):
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any("add_" in e.get("name", "") for e in events)
+
+
+# ---- the in-memory capture (utils/capture.py) -----------------------------
+
+# the batched driver thread's spans (pipeline/batch.py's "Recording")
+DRIVER_SPANS = ("admit", "emit", "refine_sweep", "plan", "slab_pack",
+                "refine_packed", "materialize", "unpack", "hole_step")
+# driver spans that lie inside one refine_sweep
+SWEEP_CHILDREN = ("plan", "slab_pack", "refine_packed", "materialize",
+                  "unpack", "hole_step")
+
+
+class _Clock:
+    """A fake ``time``: perf_counter steps 1 s a read, thread_time 0.25 s."""
+
+    def __init__(self):
+        self.t, self.cpu = 100.0, 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+    def thread_time(self):
+        self.cpu += 0.25
+        return self.cpu
+
+    def time(self):
+        return 1.7e9
+
+
+def test_capture_records_bounds_self_and_cpu_on_the_clock(monkeypatch):
+    """Each span's perf_counter bounds and self seconds (its own minus
+    its children's), device spans included, and a plain span's thread-CPU
+    seconds on the capture's own thread, with no trace file; close order;
+    the capture's own bounds."""
+    tr = trace.Tracer(None, stall_timeout=0)
+    clock = _Clock()
+    monkeypatch.setattr(trace, "time", clock)
+    monkeypatch.setattr(capture, "time", clock)
+    with capture.Capture() as cap:                       # start 101
+        with tr.span("sweep", cat="compute", n=2):       # 102 .. 107
+            with tr.device_span("refine_packed", group="g"):   # 103 .. 104
+                pass
+            with tr.span("unpack", cat="compute"):       # 105 .. 106
+                pass
+    me = threading.get_ident()
+    assert cap.thread == me and (cap.start, cap.end) == (101.0, 108.0)
+    assert cap.records == [
+        ("refine_packed", "device", me, 103.0, 104.0, 1.0, None),
+        ("unpack", "compute", me, 105.0, 106.0, 1.0, 0.25),
+        ("sweep", "compute", me, 102.0, 107.0, 3.0, 0.75),
+    ]
+    assert cap.records[2].self_s == 3.0 and cap.records[2].cpu_s == 0.75
+    tr.close()
+
+
+def test_no_record_without_a_capture(monkeypatch):
+    """With no capture open, no trace file and no blackbox, a plain span
+    is the null span and keeps nothing; a capture opened later holds only
+    what follows."""
+    tr = trace.Tracer(None, stall_timeout=0)
+    assert capture.ACTIVE == []
+    kept = []
+    monkeypatch.setattr(capture, "keep", lambda *a: kept.append(a))
+    with tr.span("admit") as sp:
+        assert sp is trace._NULL_SPAN
+    with tr.device_span("refine_packed", group="g"):
+        pass
+    assert kept == []
+    monkeypatch.undo()
+    with capture.Capture() as cap:
+        with tr.span("emit", cat="write"):
+            pass
+    with tr.span("admit"):
+        pass
+    assert [r.name for r in cap.records] == ["emit"]
+    assert capture.ACTIVE == []
+    tr.close()
+
+
+def test_a_capture_never_synchronises(monkeypatch):
+    """A captured device span's force is the identity, a CUDA tensor in
+    its output or not: only a trace file forces."""
+    calls = _syncs(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append("device"))
+    fake = torch.Tensor._make_subclass(_FakeCuda, torch.zeros(3))
+    tr = trace.Tracer(None, stall_timeout=0)
+    with capture.Capture() as cap:
+        with tr.device_span("refine_packed", group="g") as sp:
+            assert sp.force(fake) is fake
+        with tr.device_span("materialize", group="g",
+                            attribute=False) as sp:
+            assert sp.force((fake, [fake])) is not None
+    tr.close()
+    assert calls == []
+    assert [r.name for r in cap.records] == ["refine_packed", "materialize"]
+
+
+@pytest.fixture(scope="module")
+def tiny_fasta(tmp_path_factory):
+    """Four holes of 400-bp templates, one with an adapter read-through,
+    as FASTA."""
+    d = tmp_path_factory.mktemp("capture")
+    rng = np.random.default_rng(11)
+    zs = []
+    for h in range(4):
+        z = synth.make_zmw(rng, 400, 5 + h % 2, movie="mv", hole=str(h))
+        if h == 1:
+            z.passes.insert(2, synth.read_through(rng, z.template))
+            z.strands.insert(2, 0)
+        zs.append(z)
+    fa = d / "in.fa"
+    fa.write_text(synth.make_fasta(zs))
+    return fa
+
+
+TINY = ["-A", "-m", "500", "--batch", "on", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def captured_runs(tiny_fasta, tmp_path_factory):
+    """The port's batched driver on the CPU, three ways: under a capture
+    with no trace file (the prep pool's threads, the default); under
+    --trace alone and under --trace and a capture (inline prep, so both
+    admit and sweep alike).  No synchronise may be asked for in any of
+    them."""
+    d = tmp_path_factory.mktemp("captured")
+    calls = []
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch.cuda, "synchronize", lambda *a: calls.append(a))
+    runs = {}
+    try:
+        for name, traced, captured in (("capture", False, True),
+                                       ("trace", True, False),
+                                       ("both", True, True)):
+            out, t = d / f"{name}.fa", d / f"{name}.jsonl"
+            argv = TINY + (["--trace", str(t), "--prep-threads", "0"]
+                           if traced else []) + [str(tiny_fasta), str(out)]
+            cap = capture.Capture()
+            if captured:
+                with cap:
+                    assert cli.main(argv) == 0
+            else:
+                assert cli.main(argv) == 0
+            runs[name] = {"cap": cap, "out": out.read_bytes(),
+                          "trace": t if traced else None}
+    finally:
+        mp.undo()
+    assert calls == []
+    return runs
+
+
+def _inside(r, outer):
+    return outer.start <= r.start and r.end <= outer.end
+
+
+def test_capture_records_the_driver_spans(captured_runs):
+    """Every phase of the driver thread is a span of the capture: admit,
+    emit (write_record inside), refine_sweep with plan, slab_pack,
+    refine_packed, materialize, unpack and hole_step inside it, one
+    hole_step a sweep and one slab_pack, materialize and unpack a
+    refine_packed; each sweep's self time is its own minus its
+    children's."""
+    cap = captured_runs["capture"]["cap"]
+    mine = [r for r in cap.records if r.thread == cap.thread]
+    names = collections.Counter(r.name for r in mine)
+    assert set(DRIVER_SPANS) <= set(names)
+    assert names["hole_step"] == names["refine_sweep"] == names["plan"]
+    assert (names["slab_pack"] == names["refine_packed"]
+            == names["materialize"] == names["unpack"])
+    assert names["write_record"] == 4
+    assert "prep_hole" not in names    # on the pool's threads
+    sweeps = [r for r in mine if r.name == "refine_sweep"]
+    for r in mine:
+        assert cap.start <= r.start <= r.end <= cap.end
+        assert -1e-9 <= r.self_s <= r.end - r.start + 1e-9
+        # the thread clock is read for the opener's plain spans only
+        assert (r.cpu_s is None) == (r.cat == "device")
+        assert r.cpu_s is None or r.cpu_s >= 0.0
+        if r.name in SWEEP_CHILDREN:
+            assert sum(_inside(r, s) for s in sweeps) == 1, r
+    assert all(r.cpu_s is None for r in cap.records
+               if r.thread != cap.thread)
+    emits = [r for r in mine if r.name == "emit"]
+    for r in mine:
+        if r.name == "write_record":
+            assert any(_inside(r, e) for e in emits)
+    for s in sweeps:
+        kids = [r for r in mine if r.name in SWEEP_CHILDREN
+                and _inside(r, s)]
+        assert s.self_s == pytest.approx(
+            (s.end - s.start) - sum(k.end - k.start for k in kids),
+            abs=1e-6)
+    assert any(r.name == "prep_hole" for r in cap.records)
+
+
+def test_trace_files_keep_every_old_span(captured_runs):
+    """A --trace file carries the same span records with or without a
+    capture open (names, categories, threads, args), the new driver
+    spans among them in the documented categories; the bytes of the
+    output are the same in all three runs, and the captured spans of the
+    traced run are its file's."""
+    def spans(path):
+        return collections.Counter(
+            (r["name"], r["cat"], r["tid"],
+             json.dumps({k: v for k, v in r.get("args", {}).items()
+                         if k != "plan"}, sort_keys=True))
+            for r in _read_jsonl(path) if r["ev"] == "span")
+
+    a = spans(captured_runs["trace"]["trace"])
+    b = spans(captured_runs["both"]["trace"])
+    assert a == b
+    cats = {(k[0], k[1]) for k in a}
+    for name, cat in (("admit", "host"), ("emit", "write"),
+                      ("plan", "compute"), ("slab_pack", "compute"),
+                      ("unpack", "compute"), ("hole_step", "compute"),
+                      ("refine_sweep", "compute"),
+                      ("refine_packed", "device"),
+                      ("materialize", "device"),
+                      ("write_record", "write"), ("prep_hole", "prep"),
+                      ("ingest_hole", "ingest")):
+        assert (name, cat) in cats
+    # the file's keys are the recorder's, as before
+    for r in _read_jsonl(captured_runs["both"]["trace"]):
+        if r["ev"] == "span":
+            assert set(r) <= {"ev", "name", "cat", "ts", "mono", "dur",
+                              "tid", "self", "args", "compile", "cid",
+                              "warmup"}
+    outs = {run["out"] for run in captured_runs.values()}
+    assert len(outs) == 1 and next(iter(outs)).count(b"/ccs\n") == 4
+    # the captured spans of the traced run are the file's
+    cap = captured_runs["both"]["cap"]
+    assert collections.Counter(r.name for r in cap.records) == \
+        collections.Counter(r["name"] for r in
+                            _read_jsonl(captured_runs["both"]["trace"])
+                            if r["ev"] == "span")
+
+
+def test_a_profiled_run_keeps_its_capture(tiny_fasta, tmp_path,
+                                          monkeypatch):
+    """run_pipeline opens a capture for its run while torch.profiler
+    records, on the thread that called it, and leaves it on the run's
+    metrics once closed; without the profiler it takes none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccsx_tpu_torch.pipeline import run
+
+    def drive(*a, **k):
+        with trace.span("admit"):
+            pass
+        with trace.device_span("refine_packed", group="g"):
+            pass
+
+    monkeypatch.setattr(batch, "drive_batched", drive)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        TINY + [str(tiny_fasta), str(tmp_path / "o.fa")]))
+    m = RunMetrics()
+    assert run.run_pipeline(str(tiny_fasta), str(tmp_path / "o.fa"), cfg,
+                            batch="on", metrics=m) == 0
+    assert m.capture is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        m = RunMetrics()
+        assert run.run_pipeline(str(tiny_fasta), str(tmp_path / "p.fa"),
+                                cfg, batch="on", metrics=m) == 0
+        assert capture.ACTIVE == []
+    cap = m.capture
+    assert cap.thread == threading.get_ident() and cap.end is not None
+    assert [(r.name, r.thread) for r in cap.records] == [
+        ("admit", cap.thread), ("refine_packed", cap.thread)]
